@@ -1,0 +1,150 @@
+"""Atomic checkpoints in the JAX package's on-disk layout.
+
+One directory per step, as ``repro.checkpoint.manager`` writes it::
+
+    <root>/step_000123/
+        manifest.json       # leaves (key, file, shape, dtype), step, extra
+        leaf_000000.npy ... # one .npy per leaf, in sorted-key order
+    <root>/step_000123.tmp/ # staging dir, renamed when complete
+
+A tree is a nested dict of numpy arrays (or tensors, copied to the
+host); leaf keys join the dict keys with "/" (``codebooks/direction``).
+Either package restores the other's checkpoints.  Writes go to ``.tmp``
+and are renamed only when complete, and the ``keep_n`` newest steps are
+kept on every publish.  Per-host shard files (``save_shard``) are not
+ported yet: restoring one raises.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import shutil
+import time
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+
+Tree = Any
+
+
+def _flatten(tree: Tree, prefix: str = "") -> list[tuple[str, Any]]:
+    """(key, leaf) pairs in the JAX package's order: dict keys sorted."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += _flatten(tree[k], f"{prefix}{k}/")
+        return out
+    return [(prefix[:-1], tree)]
+
+
+def _unflatten(pairs: list[tuple[str, Any]]) -> dict:
+    out: dict = {}
+    for key, leaf in pairs:
+        node = out
+        *parents, last = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return out
+
+
+def _host(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+class CheckpointManager:
+    def __init__(self, root: str | Path, keep_n: int = 3):
+        self.root = Path(root)
+        self.root.mkdir(parents=True, exist_ok=True)
+        self.keep_n = keep_n
+
+    # -- write -----------------------------------------------------------
+
+    def save(self, step: int, tree: Tree, *, extra: dict | None = None) -> None:
+        """Checkpoint `tree` at `step` atomically, then prune old steps."""
+        final = self.root / f"step_{step:09d}"
+        tmp = self.root / f"step_{step:09d}.tmp"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        manifest = {"step": step, "leaves": [], "extra": extra or {}, "time": time.time()}
+        for i, (key, leaf) in enumerate(_flatten(tree)):
+            arr = _host(leaf)
+            fname = f"leaf_{i:06d}.npy"
+            np.save(tmp / fname, arr)
+            manifest["leaves"].append(
+                {"key": key, "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            )
+        with open(tmp / "manifest.json", "w") as f:
+            json.dump(manifest, f)
+            f.flush()
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)  # atomic publish
+        self._gc()
+
+    def _gc(self) -> None:
+        """Keep the `keep_n` newest finalized steps (0 keeps all) and drop
+        `.tmp` staging debris older than the oldest kept step."""
+        if not self.keep_n:
+            return
+        steps = self.all_steps()
+        for s in steps[: -self.keep_n]:
+            shutil.rmtree(self.root / f"step_{s:09d}", ignore_errors=True)
+        kept = steps[-self.keep_n :]
+        if not kept:
+            return
+        for p in self.root.iterdir():
+            m = re.fullmatch(r"step_(\d+)\.tmp", p.name)
+            if m and int(m.group(1)) < kept[0]:
+                shutil.rmtree(p, ignore_errors=True)
+
+    # -- read ------------------------------------------------------------
+
+    def all_steps(self) -> list[int]:
+        out = []
+        for p in self.root.iterdir():
+            m = re.fullmatch(r"step_(\d+)", p.name)
+            if m and (p / "manifest.json").exists():
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def latest_step(self) -> int | None:
+        steps = self.all_steps()
+        return steps[-1] if steps else None
+
+    def _manifest(self, step: int) -> dict:
+        return json.loads((self.root / f"step_{step:09d}" / "manifest.json").read_text())
+
+    def restore(self, step: int, like: Tree) -> Tree:
+        """Numpy leaves of `step` in the structure of `like`, whose leaves
+        are shapes (tuples) or arrays; shapes are checked."""
+        d = self.root / f"step_{step:09d}"
+        by_key = {m["key"]: m for m in self._manifest(step)["leaves"]}
+        pairs = []
+        for key, leaf in _flatten(like):
+            meta = by_key.get(key)
+            if meta is None:
+                raise KeyError(f"checkpoint {step} missing leaf {key!r}")
+            if meta.get("shards"):
+                raise NotImplementedError(
+                    f"{key}: per-host shard files are not supported by repro_torch yet"
+                )
+            arr = np.load(d / meta["file"])
+            want = tuple(leaf) if isinstance(leaf, tuple) else tuple(np.shape(leaf))
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{key}: checkpoint shape {arr.shape} != {want}")
+            pairs.append((key, arr))
+        return _unflatten(pairs)
+
+    def extra(self, step: int) -> dict:
+        return self._manifest(step).get("extra", {})
+
+    def leaf_meta(self, step: int) -> dict[str, dict]:
+        """Manifest metadata per flat leaf key (shape, dtype)."""
+        return {m["key"]: m for m in self._manifest(step)["leaves"]}

@@ -1,0 +1,17 @@
+"""uHD core of the port: Sobol direction numbers, packed bits, the
+``uhd_dynamic`` encoder and `HDCModel`."""
+
+from repro_torch.core.model import HDCConfig  # noqa: F401
+from repro_torch.core.hdc_model import (  # noqa: F401
+    HDCModel,
+    predict_packed,
+    resolve_device,
+    search_packed,
+)
+from repro_torch.core.registry import (  # noqa: F401
+    BackendUnavailableError,
+    backend_names,
+    get_encoder,
+    resolve_backend,
+)
+from repro_torch.core import encoders as _builtin_encoders  # noqa: F401  (registers)

@@ -1,0 +1,167 @@
+"""Public wrappers of the port's CUDA kernels.
+
+Each wrapper chooses by the device of the tensors it is given, and by
+nothing else: a CPU tensor runs the plain version in
+:mod:`repro_torch.kernels.ref`; a CUDA tensor launches the hand-written
+kernel (built on first use by :mod:`repro_torch.kernels._build`) or the
+call raises.  There is no fallback from one to the other.
+
+``LAUNCHES`` counts, per wrapper, the calls that launched its kernel;
+``chip_smoke.py`` zeroes it before driving the serving path and reads
+it after, to show that the path ran through the kernels.  One call of
+``hamming_topk`` is one scan launch plus its merge passes, counted as one.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, ref
+
+LAUNCHES: dict[str, int] = {
+    "encode_bundle_dynamic": 0,
+    "fit_bundle_dynamic": 0,
+    "hamming_topk": 0,
+}
+
+#: grid-dimension limits of the kernels (gridDim.y <= 65535 rows of blocks)
+_MAX_ENCODE_ROWS = 65535 * 32
+_MAX_FIT_ROWS = 65535 * 128
+_DIR_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _on_cpu(*tensors: torch.Tensor) -> bool:
+    """True for CPU tensors; CUDA tensors must share one device; any other
+    device is refused."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"operands on different devices: {sorted(map(str, devs))}")
+    (dev,) = devs
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"repro_torch kernels run on cuda or cpu tensors, got {dev}")
+    return False
+
+
+def _check(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {err}")
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _stream(dev: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+
+
+def _direction_args(x: torch.Tensor, direction: torch.Tensor):
+    if x.dim() != 2:
+        raise ValueError(f"x_q must be (B, H), got {tuple(x.shape)}")
+    if direction.shape != (x.shape[1], 32):
+        raise ValueError(
+            f"direction must be (H, 32) = ({x.shape[1]}, 32), got {tuple(direction.shape)}"
+        )
+    if direction.dtype not in _DIR_DTYPES:
+        raise ValueError(f"direction dtype {direction.dtype} not in {_DIR_DTYPES}")
+    return direction.contiguous(), direction.element_size()
+
+
+def encode_bundle_dynamic(
+    x_q: torch.Tensor, direction: torch.Tensor, d: int, *, skip: int = 1
+) -> torch.Tensor:
+    """Table-free encode+bundle, (B, H) int, (H, 32) -> (B, d) int32.
+    Semantics: ``ref.encode_bundle_dynamic``."""
+    if _on_cpu(x_q, direction):
+        return ref.encode_bundle_dynamic(x_q, direction, d, skip=skip)
+    x = x_q.to(torch.int32).contiguous()
+    dirs, dir_bytes = _direction_args(x, direction)
+    b, h = x.shape
+    if b > _MAX_ENCODE_ROWS:
+        raise ValueError(f"encode_bundle_dynamic takes at most {_MAX_ENCODE_ROWS} rows, got {b}")
+    out = torch.empty((b, d), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().uhd_encode_bundle_dynamic(
+            _ptr(x), _ptr(dirs), dir_bytes, _ptr(out), b, h, d, int(skip),
+            _stream(x.device),
+        )
+    _check(err, "encode_bundle_dynamic")
+    LAUNCHES["encode_bundle_dynamic"] += 1
+    return out
+
+
+def fit_bundle_dynamic(
+    x_q: torch.Tensor, direction: torch.Tensor, labels: torch.Tensor,
+    n_classes: int, d: int, *, skip: int = 1,
+) -> torch.Tensor:
+    """Fused table-free training step, (B, H), (H, 32), (B,) -> (C, d)
+    int32 class sums; labels outside [0, n_classes) contribute nothing.
+    Semantics: ``ref.fit_bundle_dynamic``."""
+    if _on_cpu(x_q, direction, labels):
+        return ref.fit_bundle_dynamic(x_q, direction, labels, n_classes, d, skip=skip)
+    x = x_q.to(torch.int32).contiguous()
+    dirs, dir_bytes = _direction_args(x, direction)
+    lab = labels.to(torch.int32).contiguous()
+    b, h = x.shape
+    if lab.shape != (b,):
+        raise ValueError(f"labels must be ({b},), got {tuple(lab.shape)}")
+    if b > _MAX_FIT_ROWS:
+        raise ValueError(f"fit_bundle_dynamic takes at most {_MAX_FIT_ROWS} rows, got {b}")
+    sums = torch.zeros((n_classes, d), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().uhd_fit_bundle_dynamic(
+            _ptr(x), _ptr(dirs), dir_bytes, _ptr(lab), _ptr(sums), b, h,
+            n_classes, d, int(skip), _stream(x.device),
+        )
+    _check(err, "fit_bundle_dynamic")
+    LAUNCHES["fit_bundle_dynamic"] += 1
+    return sums
+
+
+def hamming_topk(
+    q_words: torch.Tensor, c_words: torch.Tensor, d: int, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Packed top-k retrieval, (B, W), (C, W) int32 words -> ((B, k) int32
+    indices, (B, k) int32 Hamming distances), each row ascending by
+    (distance, index), lowest index on ties; any k in [1, C].
+    ``d`` is not needed for distances (kept for parity with the JAX op).
+    Semantics: ``ref.hamming_topk_oracle``."""
+    c = c_words.shape[0]
+    if not 1 <= k <= c:
+        raise ValueError(f"k must be in [1, {c}], got {k}")
+    if _on_cpu(q_words, c_words):
+        return ref.hamming_topk(q_words, c_words, d, k)
+    if q_words.dtype != torch.int32 or c_words.dtype != torch.int32:
+        raise ValueError("packed words must be int32 bit patterns")
+    if q_words.dim() != 2 or c_words.dim() != 2 or q_words.shape[1] != c_words.shape[1]:
+        raise ValueError(
+            f"expected (B, W) and (C, W) words, got {tuple(q_words.shape)} and "
+            f"{tuple(c_words.shape)}"
+        )
+    q, rows = q_words.contiguous(), c_words.contiguous()
+    b, w = q.shape
+    dev = q.device
+    idx = torch.empty((b, k), dtype=torch.int32, device=dev)
+    dist = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return idx, dist
+    lib = _build.library()
+    n = lib.uhd_hamming_topk_scratch(b, c, k)
+    scratch = [torch.empty(n, dtype=torch.int64, device=dev) if n else None for _ in range(2)]
+    with torch.cuda.device(dev):
+        err = lib.uhd_hamming_topk(
+            _ptr(q), _ptr(rows), b, c, w, k, _ptr(scratch[0]), _ptr(scratch[1]),
+            _ptr(idx), _ptr(dist), _stream(dev),
+        )
+    _check(err, "hamming_topk")
+    LAUNCHES["hamming_topk"] += 1
+    return idx, dist

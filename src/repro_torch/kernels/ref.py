@@ -1,0 +1,156 @@
+"""Plain PyTorch versions of the port's CUDA kernels.
+
+Each function defines the exact semantics its kernel reproduces and is
+the torch counterpart of a function in ``repro.kernels.ref`` (or of
+``repro.core.encoding.uhd_encode_dynamic``).  On a CPU tensor the
+wrappers in :mod:`repro_torch.kernels.ops` run these; on the card
+``chip_smoke.py`` and the cuda-marked tests hold each kernel against
+them.  Everything is integer arithmetic, so agreement is exact.
+
+uint32 arithmetic (Gray codes, raw Sobol integers) runs in int64 masked
+to 32 bits; see :mod:`repro_torch.core.unary`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import unary
+
+I32_MAX = 2**31 - 1
+
+
+def sobol_tile(direction: torch.Tensor, d0: int, tile: int) -> torch.Tensor:
+    """Sobol integers of points [d0, d0 + tile) for every direction row.
+
+    direction: (H, 32) direction integers (any unsigned or int dtype).
+    Returns (H, tile) int64 values in [0, 2**32): point k is the XOR of
+    the direction entries selected by the bits of gray(k), with k taken
+    modulo 2**32 as the JAX package's uint32 index is.
+    """
+    dev = direction.device
+    idx = (d0 + torch.arange(tile, dtype=torch.int64, device=dev)) & 0xFFFFFFFF
+    gray = idx ^ (idx >> 1)
+    dirs = direction.to(torch.int64) & 0xFFFFFFFF
+    acc = torch.zeros((direction.shape[0], tile), dtype=torch.int64, device=dev)
+    for bit in range(direction.shape[-1]):
+        mask = (gray >> bit) & 1
+        acc ^= mask[None, :] * dirs[:, bit : bit + 1]
+    return acc
+
+
+def _tile_hvs(x: torch.Tensor, direction: torch.Tensor, d0: int, tile: int) -> torch.Tensor:
+    """(B, H) int32 intensities -> (B, tile) int32 hypervector columns."""
+    s = unary.to_i32(sobol_tile(direction, d0, tile))
+    ge = x[:, :, None] >= s[None, :, :]
+    return 2 * ge.sum(dim=1, dtype=torch.int32) - x.shape[1]
+
+
+def encode_bundle_dynamic(
+    x_q: torch.Tensor, direction: torch.Tensor, d: int, *, skip: int = 1,
+    block_d: int = 512,
+) -> torch.Tensor:
+    """hv[b, j] = sum_h (2*[x[b, h] >= S[h, skip + j]] - 1), (B, H) -> (B, d).
+
+    Thresholds are generated per D-tile and discarded; the peak
+    transient is (B, H, block_d) booleans.
+    """
+    x = x_q.to(torch.int32)
+    tiles = [
+        _tile_hvs(x, direction, skip + j0, min(block_d, d - j0))
+        for j0 in range(0, d, block_d)
+    ]
+    return torch.cat(tiles, dim=1) if tiles else x.new_zeros((x.shape[0], 0))
+
+
+def class_onehot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
+    """(B,) labels -> (C, B) int32 indicator; an out-of-range label gives
+    an all-zero column (it is dropped from the sums)."""
+    lab = labels.to(torch.int64)
+    classes = torch.arange(n_classes, dtype=torch.int64, device=labels.device)
+    return (lab[None, :] == classes[:, None]).to(torch.int32)
+
+
+def fit_bundle_dynamic(
+    x_q: torch.Tensor, direction: torch.Tensor, labels: torch.Tensor,
+    n_classes: int, d: int, *, skip: int = 1, block_d: int = 512,
+) -> torch.Tensor:
+    """Fused table-free training step: (B, H), (H, 32), (B,) -> (C, d)
+    int32 class sums, sums[c, j] = sum over rows labelled c of hv[b, j].
+
+    Each (B, block_d) hypervector slab is folded into the class sums by
+    an int32 segment sum before the next tile; labels outside
+    ``[0, n_classes)`` contribute nothing.
+    """
+    x = x_q.to(torch.int32)
+    lab = labels.to(torch.int64)
+    keep = (lab >= 0) & (lab < n_classes)
+    x, lab = x[keep], lab[keep]
+    out = torch.zeros((n_classes, d), dtype=torch.int32, device=x_q.device)
+    for j0 in range(0, d, block_d):
+        hv = _tile_hvs(x, direction, skip + j0, min(block_d, d - j0))
+        out[:, j0 : j0 + hv.shape[1]].index_add_(0, lab, hv)
+    return out
+
+
+def _sort_pairs(dist: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort each row ascending by (distance, index): a stable sort by
+    index, then a stable sort by distance (``torch.topk`` does not pin
+    the order of ties)."""
+    o = torch.argsort(idx, dim=-1, stable=True)
+    dist, idx = dist.gather(-1, o), idx.gather(-1, o)
+    o = torch.argsort(dist, dim=-1, stable=True)
+    return dist.gather(-1, o), idx.gather(-1, o)
+
+
+def topk_pinned(dist: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest distances of each row of a (B, C) matrix, ties to
+    the lowest column index.  Returns ((B, k) int32 indices, (B, k)
+    int32 distances), each row ascending by (distance, index)."""
+    b, c = dist.shape
+    if not 1 <= k <= c:
+        raise ValueError(f"k must be in [1, {c}], got {k}")
+    idx = torch.arange(c, dtype=torch.int32, device=dist.device).expand(b, c)
+    sd, si = _sort_pairs(dist.to(torch.int32), idx)
+    return si[:, :k], sd[:, :k]
+
+
+def hamming_distances(q_words: torch.Tensor, c_words: torch.Tensor) -> torch.Tensor:
+    """(B, W) x (C, W) packed words -> (B, C) int32 Hamming distances
+    (pad bits are zero in both operands and cancel in the XOR)."""
+    x = q_words[:, None, :] ^ c_words[None, :, :]
+    return unary.popcount_words(x).sum(-1).to(torch.int32)
+
+
+def hamming_topk_oracle(
+    q_words: torch.Tensor, c_words: torch.Tensor, d: int, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sort oracle for packed top-k retrieval: the k nearest rows per
+    query as ((B, k) indices, (B, k) distances), lowest index on ties."""
+    return topk_pinned(hamming_distances(q_words, c_words), k)
+
+
+def hamming_topk(
+    q_words: torch.Tensor, c_words: torch.Tensor, d: int, k: int,
+    *, block_c: int = 4096,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Tiled top-k: scan row tiles carrying a running k-best, so the
+    (B, C) distance matrix never exists at once.  Padded slots hold the
+    int32-max sentinel.  Equal to :func:`hamming_topk_oracle`."""
+    b = q_words.shape[0]
+    c = c_words.shape[0]
+    if not 1 <= k <= c:
+        raise ValueError(f"k must be in [1, {c}], got {k}")
+    dev = q_words.device
+    best_d = torch.full((b, k), I32_MAX, dtype=torch.int32, device=dev)
+    best_i = torch.full((b, k), I32_MAX, dtype=torch.int32, device=dev)
+    for c0 in range(0, c, block_c):
+        tile = c_words[c0 : c0 + block_c]
+        dist_t = hamming_distances(q_words, tile)
+        gidx = torch.arange(c0, c0 + tile.shape[0], dtype=torch.int32, device=dev)
+        sd, si = _sort_pairs(
+            torch.cat([best_d, dist_t], dim=1),
+            torch.cat([best_i, gidx.expand(b, -1)], dim=1),
+        )
+        best_d, best_i = sd[:, :k], si[:, :k]
+    return best_i, best_d

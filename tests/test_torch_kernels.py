@@ -1,0 +1,239 @@
+"""The port's kernels against the JAX package, and on the card against
+their plain versions.
+
+Inputs are made with numpy from a seed and handed to both packages.
+The datapath is integer arithmetic throughout, so every comparison is
+**exact equality** (no tolerance).
+
+* On the CPU, ``repro_torch.kernels.ops`` runs the plain versions of
+  ``repro_torch.kernels.ref``; they are held against the JAX package's
+  Pallas ops (interpret mode on the CPU) and its ``kernels.ref``.
+* Tests marked ``cuda`` launch the CUDA kernels and hold each against
+  its plain version on the same card; without a card they skip (the
+  fixture decides, so every xdist worker collects the same tests).
+  Run them on a card with ``python -m pytest -m cuda tests/test_torch_kernels.py``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+
+import torch
+
+from repro_torch.core import sobol as tsobol
+from repro_torch.core import unary as tunary
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+try:  # a machine with a card runs the cuda-marked tests alone, and may have no JAX
+    import jax.numpy as jnp
+
+    from repro.core import encoding as jenc
+    from repro.kernels import ops as jops
+    from repro.kernels import ref as jref
+except ModuleNotFoundError:
+    jnp = jenc = jops = jref = None
+
+
+@pytest.fixture
+def jax_side():
+    if jref is None:
+        pytest.skip("needs the JAX package")
+
+
+def _inputs(seed: int, b: int, h: int, levels: int = 16, n_classes: int = 10):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, levels + 1, (b, h)).astype(np.int32)
+    labels = rng.integers(0, n_classes, b).astype(np.int32)
+    dirs = tsobol.quantized_direction_matrix(h, levels, seed=seed)
+    return x, labels, dirs
+
+
+# (B, H, D, skip, C): every value of each sweep appears at least once
+_SHAPES = [
+    (1, 49, 300, 0, 2),
+    (5, 113, 1000, 1, 10),
+    (37, 49, 1000, 1000, 10),
+    (37, 113, 300, 1, 2),
+]
+
+
+@pytest.mark.parametrize("b,h,d,skip,c", _SHAPES)
+def test_encode_bundle_dynamic_matches_jax(jax_side, b, h, d, skip, c):
+    x, _, dirs = _inputs(b * 7 + h, b, h)
+    want = np.asarray(jops.encode_bundle_dynamic(jnp.asarray(x), jnp.asarray(dirs), d, skip=skip))
+    got = tops.encode_bundle_dynamic(torch.from_numpy(x), torch.from_numpy(dirs), d, skip=skip)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the JAX package's pure-jnp datapath agrees too
+    np.testing.assert_array_equal(
+        np.asarray(jenc.uhd_encode_dynamic(jnp.asarray(x), jnp.asarray(dirs), d, skip=skip)),
+        got.numpy(),
+    )
+
+
+@pytest.mark.parametrize("b,h,d,skip,c", _SHAPES)
+def test_fit_bundle_dynamic_matches_jax(jax_side, b, h, d, skip, c):
+    x, labels, dirs = _inputs(b * 11 + h, b, h, n_classes=c)
+    args = (jnp.asarray(x), jnp.asarray(dirs), jnp.asarray(labels), c, d)
+    want = np.asarray(jops.fit_bundle_dynamic(*args, skip=skip))
+    np.testing.assert_array_equal(np.asarray(jref.fit_bundle_dynamic(*args, skip=skip)), want)
+    got = tops.fit_bundle_dynamic(
+        torch.from_numpy(x), torch.from_numpy(dirs), torch.from_numpy(labels), c, d, skip=skip
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_fit_bundle_dynamic_drops_out_of_range_labels(jax_side):
+    """A label outside [0, C) contributes nothing (the JAX drop contract)."""
+    b, h, d, c = 9, 49, 300, 4
+    x, _, dirs = _inputs(3, b, h)
+    labels = np.asarray([0, -1, 3, c, 2, -7, 1, c + 5, 0], np.int32)
+    want = np.asarray(
+        jref.fit_bundle_dynamic(
+            jnp.asarray(x), jnp.asarray(dirs), jnp.asarray(labels), c, d, skip=1
+        )
+    )
+    got = tref.fit_bundle_dynamic(
+        torch.from_numpy(x), torch.from_numpy(dirs), torch.from_numpy(labels), c, d
+    )
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        tref.class_onehot(torch.from_numpy(labels), c).numpy(),
+        np.asarray(jref.class_onehot(jnp.asarray(labels), c)),
+    )
+    keep = (labels >= 0) & (labels < c)
+    np.testing.assert_array_equal(
+        tref.fit_bundle_dynamic(
+            torch.from_numpy(x[keep]), torch.from_numpy(dirs),
+            torch.from_numpy(labels[keep]), c, d,
+        ).numpy(),
+        want,
+    )
+
+
+@pytest.mark.parametrize("skip", [0, 1, 1000, 2**32 - 3])
+def test_sobol_tile_matches_jax(jax_side, skip):
+    dirs = tsobol.direction_matrix(33, seed=1).astype(np.uint32)
+    want = np.asarray(jref.sobol_tile(jnp.asarray(dirs), jnp.uint32(skip), 70))
+    got = tref.sobol_tile(torch.from_numpy(dirs.view(np.int32)), skip, 70)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def _packed_store(seed: int, n_q: int, n_rows: int, d: int):
+    """Packed queries and rows with duplicate rows and crafted ties."""
+    rng = np.random.default_rng(seed)
+    q_bits = rng.random((n_q, d)) < 0.5
+    r_bits = rng.random((n_rows, d)) < 0.5
+    r_bits[n_rows // 2] = r_bits[1]  # duplicate rows: equal distances, lowest index wins
+    r_bits[n_rows - 1] = r_bits[0]
+    r_bits[2] = q_bits[0]  # an exact match for query 0
+    flip = r_bits[3].copy()  # rows 3 and 4 at the same distance from query 0
+    r_bits[4] = flip
+    q = np.asarray(tunary.pack_bits(torch.from_numpy(q_bits)))
+    r = np.asarray(tunary.pack_bits(torch.from_numpy(r_bits)))
+    return q, r
+
+
+@pytest.mark.parametrize("d,n_rows,k", [(1000, 64, 1), (1000, 64, 8), (1000, 64, 64), (257, 100, 8)])
+def test_hamming_topk_matches_jax_oracle(jax_side, d, n_rows, k):
+    q, r = _packed_store(d + k, 6, n_rows, d)
+    want_i, want_d = jref.hamming_topk_oracle(
+        jnp.asarray(q.view(np.uint32)), jnp.asarray(r.view(np.uint32)), d, k
+    )
+    for fn in (tops.hamming_topk, tref.hamming_topk_oracle):
+        got_i, got_d = fn(torch.from_numpy(q), torch.from_numpy(r), d, k)
+        np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+        np.testing.assert_array_equal(got_d.numpy(), np.asarray(want_d))
+
+
+def test_hamming_topk_all_equal_distances_pin_lowest_indices():
+    """Every row at the same distance: the winners are rows 0..k-1."""
+    q = np.zeros((3, 4), np.int32)
+    r = np.full((40, 4), 0x0F0F0F0F, np.int32)
+    idx, dist = tref.hamming_topk(torch.from_numpy(q), torch.from_numpy(r), 128, 8, block_c=16)
+    np.testing.assert_array_equal(idx.numpy(), np.tile(np.arange(8), (3, 1)))
+    np.testing.assert_array_equal(dist.numpy(), np.full((3, 8), 64))
+
+
+def test_hamming_topk_rejects_k_out_of_range():
+    q, r = _packed_store(0, 2, 5, 64)
+    for k in (0, 6):
+        with pytest.raises(ValueError, match="k must be in"):
+            tops.hamming_topk(torch.from_numpy(q), torch.from_numpy(r), 64, k)
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc) to build and launch the kernels")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,d,skip,levels",
+    [(64, 784, 8192, 1, 16), (37, 100, 1000, 1000, 16), (5, 49, 300, 2**32 - 3, 2),
+     (33, 113, 257, 0, 256), (9, 40, 200, 3, 2**16)],
+)
+def test_cuda_encode_bundle_dynamic_equals_plain(cuda, b, h, d, skip, levels):
+    x, _, dirs = _inputs(b + h, b, h, levels=levels)
+    xt, dt = torch.from_numpy(x).to(cuda), torch.from_numpy(dirs).to(cuda)
+    got = tops.encode_bundle_dynamic(xt, dt, d, skip=skip)
+    torch.cuda.synchronize()
+    want = tref.encode_bundle_dynamic(xt, dt, d, skip=skip)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,d,c,skip",
+    [(512, 784, 8192, 10, 1), (37, 100, 1000, 10, 1000), (300, 49, 300, 200, 7)],
+)
+def test_cuda_fit_bundle_dynamic_equals_plain(cuda, b, h, d, c, skip):
+    x, labels, dirs = _inputs(b + d, b, h, n_classes=c)
+    labels[::7] = -1  # out-of-range labels: never written, never summed
+    labels[3::11] = c
+    xt, dt, lt = (torch.from_numpy(a).to(cuda) for a in (x, dirs, labels))
+    got = tops.fit_bundle_dynamic(xt, dt, lt, c, d, skip=skip)
+    torch.cuda.synchronize()
+    want = tref.fit_bundle_dynamic(xt, dt, lt, c, d, skip=skip)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n_q,n_rows,d,k",
+    [(64, 10, 8192, 1), (64, 5000, 8192, 8), (6, 1000, 1000, 1000), (3, 777, 257, 64),
+     (9, 600, 64, 300)],
+)
+def test_cuda_hamming_topk_equals_plain(cuda, n_q, n_rows, d, k):
+    q, r = _packed_store(n_rows + k, n_q, n_rows, d)
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    got_i, got_d = tops.hamming_topk(qt, rt, d, k)
+    torch.cuda.synchronize()
+    want_i, want_d = tref.hamming_topk(qt, rt, d, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counters_count_kernel_launches(cuda):
+    x, labels, dirs = _inputs(0, 8, 49)
+    xt, dt, lt = (torch.from_numpy(a).to(cuda) for a in (x, dirs, labels))
+    tops.reset_launches()
+    tops.encode_bundle_dynamic(xt, dt, 64)
+    tops.fit_bundle_dynamic(xt, dt, lt, 10, 64)
+    w = tunary.pack_hypervector(tops.encode_bundle_dynamic(xt, dt, 64))
+    tops.hamming_topk(w, w, 64, 3)
+    assert tops.LAUNCHES == {
+        "encode_bundle_dynamic": 2, "fit_bundle_dynamic": 1, "hamming_topk": 1,
+    }
+    # plain versions on the CPU launch nothing
+    tops.encode_bundle_dynamic(torch.from_numpy(x), torch.from_numpy(dirs), 64)
+    assert tops.LAUNCHES["encode_bundle_dynamic"] == 2
+
