@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's serving path on one NVIDIA GPU and check it.
+"""Drive the port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root, on a machine with a card
 
@@ -10,16 +10,26 @@ Phases, each printed as one JSON object per line:
    with nvcc for sm_90a, with the seconds taken and ptxas's register and
    shared-memory lines;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   serving path's shapes and at ragged ones, for exact equality (the datapath
-   is integer: the tolerance is 0), then timed with CUDA events;
+   main paths' shapes and at ragged ones, for exact equality (the datapath
+   is integer: the tolerance is 0), then timed with CUDA events; for the
+   table encode, one ``torch._int_mm`` call computing the same counts is
+   timed beside it as the library yardstick (the port never calls it);
 4. slice: ``repro_torch.launch.serve_hdc``'s smoke at the JAX smoke's
-   configuration (synth_mnist, uhd_dynamic, d=8192, levels=16, 1024 training
-   images, 256 requests in batches of 64), with every kernel's launch count
-   read around it, the class sums of both steps held against checksums from
-   the JAX package, the packed path against ``HDCModel.predict``, and
-   ``search(k=3)[:, 0]`` against ``predict``;
-5. profile: ``torch.profiler`` over 16 steady predict batches of 64: device
-   time per batch by kernel, and the device's idle share of the wall time.
+   configuration (synth_mnist, d=8192, levels=16, 1024 training images, 256
+   requests in batches of 64), once with ``uhd_dynamic`` and once with ``uhd``,
+   with every kernel's launch count read around each run, the class sums of
+   both steps held against checksums from the JAX package, the served
+   accuracy against the JAX package's, the packed path against
+   ``HDCModel.predict``, ``search(k=3)[:, 0]`` against ``predict``, and the
+   ``uhd`` step-1 model converted to ``uhd_dynamic`` against itself;
+5. train: ``repro_torch.launch.train_hdc`` at its defaults (uhd, d=8192, 4096
+   training images in batches of 2048, 1024 test images), its class sums
+   against the JAX package's checksum and its labels against the JAX
+   package's, and the checkpoint round trip;
+6. item_memory: an ``ItemMemory`` of 65,536 random rows at d=8192 (64 MiB),
+   after a delete and more adds, searched with k=8 against the plain version;
+7. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
+   encoder: device time per batch by kernel, and the device's idle share.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -39,7 +49,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # Class-sum checksums of the smoke configuration, computed by the JAX package
-# on the CPU (sha256 of the (10, 8192) int32 class sums, little-endian):
+# on the CPU (sha256 of the (10, 8192) int32 class sums, little-endian); the
+# same for encoder='uhd_dynamic' and encoder='uhd' (bit-identical encoders):
 #   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import hashlib,numpy as np; \
 #   from repro.core import HDCConfig,HDCModel; from repro.data import load_dataset; \
 #   ds=load_dataset('synth_mnist',n_train=1024,n_test=256); \
@@ -51,9 +62,42 @@ JAX_CLASS_SUMS_SHA256 = (
     "85588503a413500219b41aaf77a3692899c31e4ba056c5a6fc3782237c122f1a",  # step 0
     "a1a6b68d2bf99548f4641ea18f8e84e2e7ef1c4a4607d7d5bc44fe416e06f3f7",  # step 1
 )
-# Served accuracy of `python -m repro.launch.serve_hdc --smoke --encoder uhd_dynamic
-# --d 8192 --batch 64` (the JAX package on the CPU).
+# Served accuracy of `python -m repro.launch.serve_hdc --smoke --encoder E --d 8192
+# --batch 64` (the JAX package on the CPU), the same for E = uhd_dynamic and uhd.
 JAX_SERVED_ACCURACY = 0.8516
+
+# `python -m repro.launch.train_hdc` at its defaults (the JAX package on the CPU):
+# the class sums' sha256, the accuracy and the 1024 predicted labels, from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import hashlib,numpy as np,jax.numpy as jnp; \
+#   from repro.core import HDCConfig,HDCModel; from repro.data import load_dataset; \
+#   ds=load_dataset('synth_mnist',n_train=4096,n_test=1024); \
+#   m=HDCModel.create(HDCConfig(n_features=784,n_classes=10)).fit_batches( \
+#   (ds.train_images[i:i+2048],ds.train_labels[i:i+2048]) for i in (0,2048)); \
+#   p=np.asarray(m.predict(jnp.asarray(ds.test_images))); \
+#   print(hashlib.sha256(np.asarray(m.class_sums).astype('<i4').tobytes()).hexdigest()); \
+#   print((p==ds.test_labels).mean()); print(''.join(map(str,p.tolist())))"
+# The training set holds the pixel whose level depends on quantizing as the
+# jitted JAX paths do (image 533, pixel 471, 239.06248 -> level 15).
+JAX_TRAIN_SHA256 = "19164c5d78158f7645f974b9de61ba3790efb7f31407ff98042168951992b452"
+JAX_TRAIN_ACCURACY = 0.8984375
+JAX_TRAIN_LABELS = (
+    "4752626423573653133133200319873696305856444042547863896538243598"
+    "4717099993809375441185567780495680416092157175018916069499938373"
+    "4167861511135921108798152388812609169060387669113551050028340802"
+    "2446429833851767044503818197241776720351632630135665389046496407"
+    "1139363659435031183512564013589553969738083857517786903792233454"
+    "7471904655547088297884031761340366436264858578001587787653452079"
+    "9745981150161183512905580346733881420701818385710121181076943123"
+    "4128394971996995978118743210275575117982232130480122113895469376"
+    "0511732698973711641916865967690134183058445247718334338076686735"
+    "7746931472112646748518027119169400819029391922768936371495294415"
+    "9751548579454835438833063808595283460048052868524037201253102993"
+    "7281912365559738386343154739316150239767334840848439745469680915"
+    "1250658777015534244457256108371428350157529752014099328354291679"
+    "7168413052182820142093193398382455016901793131070924274896050435"
+    "4074217129512645985550445757614066571557931961249207181463563502"
+    "5293901159051643097773730819167985141946312044333748570673799600"
+)
 
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).  Compare-count
 # and popcount work runs on the CUDA cores: 64 int32 lanes an SM against 128 fp32
@@ -63,9 +107,17 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 
 KERNELS = {
+    "encode_bundle": dict(
+        source="src/repro_torch/kernels/csrc/encode_bundle.cu",
+        replaces="src/repro/kernels/encode_bundle.py:55",
+    ),
     "encode_bundle_dynamic": dict(
         source="src/repro_torch/kernels/csrc/encode_bundle.cu",
         replaces="src/repro/kernels/encode_bundle.py:121",
+    ),
+    "fit_bundle": dict(
+        source="src/repro_torch/kernels/csrc/encode_bundle.cu",
+        replaces="src/repro/kernels/encode_bundle.py:187",
     ),
     "fit_bundle_dynamic": dict(
         source="src/repro_torch/kernels/csrc/encode_bundle.cu",
@@ -75,6 +127,14 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/hamming_topk.cu",
         replaces="src/repro/kernels/hamming_topk.py:80",
     ),
+}
+# the shape each kernel's entry of the kernels line reports (others follow it)
+MAIN_SHAPE = {
+    "encode_bundle": {"B": 64, "H": 784, "D": 8192, "levels": 16, "table": "int8"},
+    "encode_bundle_dynamic": {"B": 64, "H": 784, "D": 8192, "skip": 1, "levels": 16},
+    "fit_bundle": {"B": 512, "H": 784, "D": 8192, "C": 10, "table": "int8"},
+    "fit_bundle_dynamic": {"B": 512, "H": 784, "D": 8192, "C": 10, "skip": 1},
+    "hamming_topk": {"B": 64, "C": 10, "D": 8192, "k": 1},
 }
 
 
@@ -101,6 +161,29 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def library_int_mm(torch, results, got, x, tab, levels, shape) -> None:
+    """Time ``torch._int_mm`` computing the table encode's counts exactly: the
+    JAX package's unary_matmul form (``core/encoding.py:94``), the inclusive
+    thermometer of x, (B, H*levels) int8, times the one-hot of S,
+    (H*levels, D) int8, with hv = 2*count - H.  The operands are built
+    outside the timed region; the result must equal the kernel's."""
+    b, h = x.shape
+    d = tab.shape[1]
+    v = torch.arange(levels, device=x.device, dtype=torch.int32)
+    u = (v[None, None, :] <= x[:, :, None]).to(torch.int8).reshape(b, h * levels)
+    o = (tab.to(torch.int32)[:, None, :] == v[None, :, None]).to(torch.int8)
+    o = o.reshape(h * levels, d)
+    counts = torch._int_mm(u, o)
+    torch.cuda.synchronize()
+    equal = torch.equal(2 * counts - h, got)
+    ms = time_ms(torch, lambda: torch._int_mm(u, o), 50)
+    emit("library_time", kernel="encode_bundle", call="torch._int_mm", shape=shape, ms=ms,
+         equal=equal, onehot_bytes=o.numel())
+    if not equal:
+        raise AssertionError("torch._int_mm's counts differ from encode_bundle's")
+    results["encode_bundle"]["timed"][json.dumps(shape, sort_keys=True)]["library_ms"] = ms
+
+
 def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
     """Each kernel against its plain version; times at the serving shapes."""
     dev = torch.device("cuda")
@@ -112,6 +195,10 @@ def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
 
     def direction(h, levels=16):
         return torch.from_numpy(sobol.quantized_direction_matrix(h, levels, seed=0)).to(dev)
+
+    def table(h, d, levels=16):
+        t = sobol.sobol_table_for_features(h, d, levels, seed=0)
+        return torch.from_numpy(t.astype("int8" if levels <= 127 else "int32")).to(dev)
 
     def check(name, got, want, shape, timed=None):
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
@@ -129,9 +216,40 @@ def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
             b_ms, b_by = bound_ms(n_bytes, n_ops)
             emit("kernel_time", kernel=name, shape=shape, ms=ms, plain_ms=plain,
                  bound_ms=b_ms, bound_by=b_by)
-            r.setdefault("timed", {})[json.dumps(shape)] = dict(
+            r.setdefault("timed", {})[json.dumps(shape, sort_keys=True)] = dict(
                 ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, shape=shape
             )
+
+    # -- encode_bundle: the serving batch, then ragged cases, one with an int32
+    #    table (levels=256) ---------------------------------------------------
+    for b, h, d, levels in [(64, 784, 8192, 16), (37, 100, 1000, 16), (33, 113, 257, 256)]:
+        x, tab = rand_x(b, h, levels), table(h, d, levels)
+        k_fn = lambda: ops.encode_bundle(x, tab)  # noqa: E731
+        p_fn = lambda: ref.encode_bundle(x, tab)  # noqa: E731
+        got = k_fn()
+        torch.cuda.synchronize()
+        shape = dict(B=b, H=h, D=d, levels=levels, table=str(tab.dtype).split(".")[-1])
+        n_bytes = b * h * 4 + h * d * tab.element_size() + b * d * 4
+        check("encode_bundle", [got], [p_fn()], shape,
+              (k_fn, p_fn, n_bytes, 2 * b * h * d) if b == 64 else None)
+        if b == 64:
+            library_int_mm(torch, results, got, x, tab, levels, shape)
+
+    # -- fit_bundle: the smoke's fit batch, train_hdc's batch, then ragged with
+    #    bad labels -----------------------------------------------------------
+    for b, h, d, c in [(512, 784, 8192, 10), (2048, 784, 8192, 10), (37, 100, 1000, 10)]:
+        x, tab = rand_x(b, h), table(h, d)
+        labels = torch.randint(0, c, (b,), generator=gen, device=dev, dtype=torch.int32)
+        if b == 37:
+            labels[::5] = -1  # out of range: contributes nothing, written nowhere
+            labels[2::7] = c
+        k_fn = lambda: ops.fit_bundle(x, tab, labels, c)  # noqa: E731
+        p_fn = lambda: ref.fit_bundle(x, tab, labels, c)  # noqa: E731
+        got = k_fn()
+        torch.cuda.synchronize()
+        n_bytes = b * h * 4 + h * d * tab.element_size() + b * 4 + c * d * 4
+        check("fit_bundle", [got], [p_fn()], dict(B=b, H=h, D=d, C=c, table="int8"),
+              (k_fn, p_fn, n_bytes, 2 * b * h * d + b * d) if b != 37 else None)
 
     # -- encode_bundle_dynamic: the serving batch, then ragged cases, one with
     #    8-bit thresholds (levels=256) --------------------------------------
@@ -185,28 +303,53 @@ def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
     return results
 
 
-def slice_phase(torch, ops, serve_hdc) -> tuple[dict, dict]:
+def path_launches(ops, name: str, kernels: tuple[str, ...], fn):
+    """Run fn with every launch count set to 0 before and read after; raise
+    if it launched none of `kernels`, the kernels of that path."""
+    import torch
+
+    ops.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    emit("launches", path=name, launches=launches)
+    missing = [k for k in kernels if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the {name} path launched no {missing} kernel")
+    return out, launches
+
+
+def sha256_of(sums) -> str:
+    return hashlib.sha256(sums.cpu().numpy().astype("<i4").tobytes()).hexdigest()
+
+
+def slice_phase(torch, ops, serve_hdc, encoder: str, kernels: tuple[str, ...]):
     """The serving smoke at the JAX smoke's configuration, launches counted."""
-    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    ckpt = ROOT / "build" / f"chip_smoke_ckpt_{encoder}"
     args = serve_hdc.parser().parse_args([
-        "--smoke", "--dataset", "synth_mnist", "--encoder", "uhd_dynamic", "--d", "8192",
+        "--smoke", "--dataset", "synth_mnist", "--encoder", encoder, "--d", "8192",
         "--levels", "16", "--n-train", "1024", "--requests", "256", "--batch", "64",
         "--device", "cuda", "--ckpt", str(ckpt),
     ])
-    ops.reset_launches()
-    result = serve_hdc.smoke(args)
-    torch.cuda.synchronize()
-    launches = dict(ops.LAUNCHES)
-    emit("slice_launches", launches=launches)
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"the serving path launched no {missing} kernel")
+
+    def run():
+        result = serve_hdc.smoke(args)
+        converted = None
+        if encoder == "uhd":  # the table-trained model served table-free
+            model = result.models[1]
+            converted = model.convert("uhd_dynamic")
+            if not torch.equal(converted.predict(result.probe), model.predict(result.probe)):
+                raise AssertionError("the uhd model converted to uhd_dynamic predicts otherwise")
+        return result, converted
+
+    (result, converted), launches = path_launches(ops, f"slice_{encoder}", kernels, run)
 
     for step, (model, want) in enumerate(zip(result.models, JAX_CLASS_SUMS_SHA256)):
-        got = hashlib.sha256(model.class_sums.cpu().numpy().astype("<i4").tobytes()).hexdigest()
-        emit("class_sums", step=step, sha256=got, jax_sha256=want, equal=got == want)
+        got = sha256_of(model.class_sums)
+        emit("class_sums", encoder=encoder, step=step, sha256=got, jax_sha256=want,
+             equal=got == want)
         if got != want:
-            raise AssertionError(f"step {step} class sums differ from the JAX package's")
+            raise AssertionError(f"{encoder} step {step} class sums differ from the JAX package's")
 
     engine = result.engines[1]
     idx, dist = engine.search(result.probe, 3)
@@ -215,21 +358,82 @@ def slice_phase(torch, ops, serve_hdc) -> tuple[dict, dict]:
         raise AssertionError("search(k=3)[:, 0] differs from predict")
     if not ((dist[:, :-1] <= dist[:, 1:]).all() and (dist >= 0).all()):
         raise AssertionError("search distances are not ascending")
+    if round(result.accuracy, 4) != JAX_SERVED_ACCURACY:
+        raise AssertionError(f"{encoder} served accuracy {result.accuracy} != JAX's "
+                             f"{JAX_SERVED_ACCURACY}")
 
     batch_ms = [t * 1e3 for s in result.serve for t in s.batch_s]
     n_served = sum(len(s.labels) for s in result.serve)
     serve_s = sum(s.wall_s for s in result.serve)
     emit(
-        "slice", accuracy=result.accuracy, jax_accuracy=JAX_SERVED_ACCURACY,
+        "slice", encoder=encoder, accuracy=result.accuracy, jax_accuracy=JAX_SERVED_ACCURACY,
         n_requests=n_served, batch=args.batch, fit_s=result.fit_s[0],
         partial_fit_s=result.fit_s[1], batch_ms_mean=sum(batch_ms) / len(batch_ms),
         batch_ms_max=max(batch_ms), batch_ms_first=batch_ms[0], img_per_s=n_served / serve_s,
         packed_parity=True, search_top1_equals_predict=True,
+        converted_to_uhd_dynamic_predicts_equal=True if converted is not None else None,
     )
     return launches, result
 
 
-def profile_phase(torch, result, batch: int) -> None:
+def train_phase(torch, ops, train_hdc, load_dataset):
+    """``train_hdc`` at its defaults, launches counted, held against JAX."""
+    args = train_hdc.parser().parse_args(
+        ["--device", "cuda", "--save-dir", str(ROOT / "build" / "chip_smoke_train")]
+    )
+    result, launches = path_launches(
+        ops, "train_hdc", ("fit_bundle", "encode_bundle"), lambda: train_hdc.train(args)
+    )
+    got = sha256_of(result.model.class_sums)
+    ds = load_dataset(args.dataset, n_train=args.n_train, n_test=args.n_test)
+    labels = result.model.predict(ds.test_images).cpu().numpy()
+    want = [int(c) for c in "".join(JAX_TRAIN_LABELS)]
+    n_differ = int(sum(int(a) != b for a, b in zip(labels, want)))
+    emit("train", encoder=args.encoder, d=args.d, n_train=args.n_train, batch=args.batch_size,
+         class_sums_sha256=got, jax_sha256=JAX_TRAIN_SHA256, equal=got == JAX_TRAIN_SHA256,
+         accuracy=result.accuracy, jax_accuracy=JAX_TRAIN_ACCURACY,
+         labels_differing_from_jax=n_differ, fit_s=result.fit_s, evaluate_s=result.eval_s,
+         round_trip_ok=result.round_trip_ok)
+    if got != JAX_TRAIN_SHA256:
+        raise AssertionError("train_hdc class sums differ from the JAX package's")
+    if abs(result.accuracy - JAX_TRAIN_ACCURACY) > 2 / 1024 or n_differ > 2:
+        raise AssertionError(f"train_hdc labels differ from JAX's on {n_differ} images")
+    if result.round_trip_ok is not True:
+        raise AssertionError("train_hdc checkpoint round trip failed")
+    return launches
+
+
+def item_memory_phase(torch, ops, ref, ItemMemory):
+    """65,536 random rows at d=8192 (64 MiB of words), a delete, more adds,
+    then search(k=8) against the plain version and each stored query first."""
+    import numpy as np
+
+    d, n, k = 8192, 65536, 8
+    rng = np.random.default_rng(0)
+    mem = ItemMemory(d, device="cuda")
+    first = rng.integers(0, 2**32, (n, mem.n_words), dtype=np.uint32)
+    more = rng.integers(0, 2**32, (16, mem.n_words), dtype=np.uint32)
+    gone = [0, 7, 40_000, n - 1]
+    mem.add_packed(first)
+    mem.delete(gone)
+    mem.add_packed(more)
+    stored = np.concatenate([np.delete(first, gone, axis=0), more])  # what the store holds
+    pos = np.concatenate([np.arange(48) * 1361, np.arange(len(stored) - 16, len(stored))])
+    (idx, dist), launches = path_launches(
+        ops, "item_memory", ("hamming_topk",), lambda: mem.search(stored[pos], k)
+    )
+    rows = torch.from_numpy(stored.view(np.int32)).cuda()
+    want_i, want_d = ref.hamming_topk(rows[torch.from_numpy(pos).cuda()], rows, d, k)
+    equal = bool((idx == want_i.cpu().numpy()).all() and (dist == want_d.cpu().numpy()).all())
+    first_hit = bool((idx[:, 0] == pos).all() and (dist[:, 0] == 0).all())
+    emit("item_memory", rows=len(mem), mib=mem.nbytes / 2**20, queries=len(pos), k=k,
+         equal_plain=equal, stored_query_first_at_0=first_hit)
+    if len(mem) != len(stored) or not (equal and first_hit):
+        raise AssertionError("ItemMemory.search disagrees with the plain version")
+    return launches
+
+
+def profile_phase(torch, result, batch: int, encoder: str) -> None:
     """Device time of steady-state predict batches by kernel, and the
     device's idle share of the batch wall time (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity, profile
@@ -255,11 +459,12 @@ def profile_phase(torch, result, batch: int) -> None:
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     device_us = sum(r[1] for r in rows)
     if not rows:
-        emit("profile", batch=batch, batches=n, wall_ms_per_batch=wall_us / n / 1e3,
-             device_ms_per_batch="not measured", idle_share="not measured")
+        emit("profile", encoder=encoder, batch=batch, batches=n,
+             wall_ms_per_batch=wall_us / n / 1e3, device_ms_per_batch="not measured",
+             idle_share="not measured")
         return
     emit(
-        "profile", batch=batch, batches=n, wall_ms_per_batch=wall_us / n / 1e3,
+        "profile", encoder=encoder, batch=batch, batches=n, wall_ms_per_batch=wall_us / n / 1e3,
         device_ms_per_batch=device_us / n / 1e3, idle_share=1.0 - device_us / wall_us,
         top=[{"name": k[:90], "ms_per_batch": t / n / 1e3, "calls_per_batch": c / n}
              for k, t, c in rows[:12]],
@@ -273,9 +478,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import sobol, unary
+    from repro_torch.core import ItemMemory, sobol, unary
+    from repro_torch.data import load_dataset
     from repro_torch.kernels import _build, ops, ref
-    from repro_torch.launch import serve_hdc
+    from repro_torch.launch import serve_hdc, train_hdc
 
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -298,25 +504,36 @@ def main() -> int:
          cached=_build.build_info["cached"], ptxas=ptxas)
 
     results = kernel_phase(torch, ops, ref, sobol, unary)
-    launches, result = slice_phase(torch, ops, serve_hdc)
-    profile_phase(torch, result, 64)
+    by_path = {}
+    by_path["slice_uhd_dynamic"], result_dyn = slice_phase(
+        torch, ops, serve_hdc, "uhd_dynamic",
+        ("encode_bundle_dynamic", "fit_bundle_dynamic", "hamming_topk"),
+    )
+    by_path["slice_uhd"], result_uhd = slice_phase(
+        torch, ops, serve_hdc, "uhd",
+        ("encode_bundle", "fit_bundle", "hamming_topk", "encode_bundle_dynamic"),
+    )
+    by_path["train_hdc"] = train_phase(torch, ops, train_hdc, load_dataset)
+    by_path["item_memory"] = item_memory_phase(torch, ops, ref, ItemMemory)
+    profile_phase(torch, result_dyn, 64, "uhd_dynamic")
+    profile_phase(torch, result_uhd, 64, "uhd")
 
-    main_shape = {
-        "encode_bundle_dynamic": {"B": 64, "H": 784, "D": 8192, "skip": 1, "levels": 16},
-        "fit_bundle_dynamic": {"B": 512, "H": 784, "D": 8192, "C": 10, "skip": 1},
-        "hamming_topk": {"B": 64, "C": 10, "D": 8192, "k": 1},
-    }
     line = []
     for name, meta in KERNELS.items():
         r = results[name]
-        t = r["timed"][json.dumps(main_shape[name])]
+        main = json.dumps(MAIN_SHAPE[name], sort_keys=True)
+        t = r["timed"][main]
         line.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
-            "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None, "shape": t["shape"], "equal": True,
-            "other_shapes": [v for k, v in r["timed"].items() if k != json.dumps(main_shape[name])],
+            "launches": sum(p[name] for p in by_path.values()),
+            "launches_by_path": {p: n[name] for p, n in by_path.items()},
+            "max_abs_err": r["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t.get("library_ms"), "shape": t["shape"], "equal": True,
+            "other_shapes": [v for k, v in r["timed"].items() if k != main],
         })
+        if line[-1]["launches"] <= 0:
+            raise AssertionError(f"no path launched the {name} kernel")
     print(json.dumps({"kernels": line}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}),

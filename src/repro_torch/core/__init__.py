@@ -1,5 +1,5 @@
-"""uHD core of the port: Sobol direction numbers, packed bits, the
-``uhd_dynamic`` encoder and `HDCModel`."""
+"""uHD core of the port: Sobol numbers, packed bits, the ``uhd`` and
+``uhd_dynamic`` encoders, `HDCModel` and `ItemMemory`."""
 
 from repro_torch.core.model import HDCConfig  # noqa: F401
 from repro_torch.core.hdc_model import (  # noqa: F401
@@ -8,6 +8,7 @@ from repro_torch.core.hdc_model import (  # noqa: F401
     resolve_device,
     search_packed,
 )
+from repro_torch.core.item_memory import ItemMemory  # noqa: F401
 from repro_torch.core.registry import (  # noqa: F401
     BackendUnavailableError,
     backend_names,

@@ -1,8 +1,12 @@
-"""The ``uhd_dynamic`` encoder and its two datapaths.
+"""The uHD encoders, ``uhd`` (stored table) and ``uhd_dynamic``
+(table-free), and their two datapaths each.
 
-The paper's headline *dynamic* generation: the codebook is only the
-(H, 32) quantized Sobol direction matrix, and thresholds are
-regenerated at encode time (see ``repro.core.encoders``, :203-308).
+Both encode a pixel h against the quantized Sobol thresholds S[h, :]
+(see ``repro.core.encoders``, :93-308): ``uhd`` stores the (H, D)
+threshold table, ``uhd_dynamic`` only the (H, 32) quantized direction
+matrix and regenerates thresholds at encode time.  From the same config
+they give bit-identical hypervectors, so they are one family and
+``HDCModel.convert`` moves class sums between them.
 
   * ``"cuda"`` — the hand-written kernels of
     :mod:`repro_torch.kernels.ops` (encode, fused training step, packed
@@ -10,8 +14,10 @@ regenerated at encode time (see ``repro.core.encoders``, :203-308).
   * ``"ref"`` — the plain PyTorch versions of
     :mod:`repro_torch.kernels.ref`, for tensors on the CPU.
 
-The table encoder ``uhd`` and the ``baseline`` encoder are not ported
-yet (ROADMAP.md).
+The device is the only datapath switch: the JAX package's other ``uhd``
+datapaths (``naive``, ``blocked``, ``unary_matmul``, ``unary_oracle``)
+are not registered, and a manifest that names one loads as ``"auto"``.
+The ``baseline`` encoder is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -42,17 +48,80 @@ def _off_card(platform: str) -> bool:
     return platform != "cuda"
 
 
-@register_encoder("uhd_dynamic")
-class UHDDynamicEncoder(EncoderBase):
-    """uHD encoding with no (H, D) table: the codebook is
-    ``{"direction": (H, 32)}`` in the narrowest unsigned dtype holding
-    ``levels - 1``, and ``cfg.sobol_skip`` sets the first Sobol point."""
+@register_encoder("uhd")
+class UHDEncoder(EncoderBase):
+    """uHD encoding over a stored threshold table: the codebook is
+    ``{"sobol": (H, D)}``, the quantized Sobol points ``sobol_skip ..
+    sobol_skip + D - 1`` of each feature's dimension, int8 when
+    ``levels <= 127`` and int32 otherwise."""
 
     auto_order = {"cuda": ("cuda",), "default": ("ref",)}
+    family = "uhd"
     # uHD hypervectors carry a per-example brightness common mode: class
     # sums stay non-binarized and packing row-centers (DESIGN.md §5-§6).
     default_class_binarize = "none"
     default_pack_center = "row"
+
+    @staticmethod
+    def _sobol_dtype(cfg: "HDCConfig") -> np.dtype:
+        return np.dtype(np.int8 if cfg.levels <= 127 else np.int32)
+
+    def build_codebooks(self, cfg: "HDCConfig") -> dict[str, torch.Tensor]:
+        table = sobol.sobol_table_for_features(
+            cfg.n_features, cfg.d, cfg.levels, seed=cfg.seed, skip=cfg.sobol_skip
+        )
+        return {"sobol": torch.from_numpy(table.astype(self._sobol_dtype(cfg)))}
+
+    def codebook_specs(self, cfg: "HDCConfig") -> dict[str, tuple[tuple[int, ...], np.dtype]]:
+        return {"sobol": ((cfg.n_features, cfg.d), self._sobol_dtype(cfg))}
+
+
+@register_backend("uhd", "ref", available=_off_card)
+def _uhd_ref_encode(cfg, books, x_q):
+    """Plain PyTorch D-tiled compare over the table (CPU tensors)."""
+    from repro_torch.kernels import ref as kref
+
+    return kref.encode_bundle(x_q, books["sobol"])
+
+
+@register_fit_bundle("uhd", "ref")
+def _uhd_ref_fit_bundle(cfg, books, x_q, labels):
+    """Plain PyTorch D-tile scan with a per-class segment sum."""
+    from repro_torch.kernels import ref as kref
+
+    return kref.fit_bundle(x_q, books["sobol"], labels, cfg.n_classes)
+
+
+@register_backend("uhd", "cuda", available=_on_card)
+def _uhd_cuda_encode(cfg, books, x_q):
+    """CUDA encode+bundle kernel over the stored table."""
+    from repro_torch.kernels import ops
+
+    return ops.encode_bundle(x_q, books["sobol"])
+
+
+@register_fit_bundle("uhd", "cuda")
+def _uhd_cuda_fit_bundle(cfg, books, x_q, labels):
+    """CUDA fused encode + per-class segment-sum kernel over the table."""
+    from repro_torch.kernels import ops
+
+    return ops.fit_bundle(x_q, books["sobol"], labels, cfg.n_classes)
+
+
+@register_topk("uhd", "cuda")
+def _uhd_cuda_topk(q_words, c_words, d, k):
+    """CUDA split-C packed-Hamming top-k kernel with an exact merge."""
+    from repro_torch.kernels import ops
+
+    return ops.hamming_topk(q_words, c_words, d, k)
+
+
+@register_encoder("uhd_dynamic")
+class UHDDynamicEncoder(UHDEncoder):
+    """uHD encoding with no (H, D) table: the codebook is
+    ``{"direction": (H, 32)}`` in the narrowest unsigned dtype holding
+    ``levels - 1``, and ``cfg.sobol_skip`` sets the first Sobol point.
+    The family and its policies are ``uhd``'s."""
 
     def build_codebooks(self, cfg: "HDCConfig") -> dict[str, torch.Tensor]:
         dirs = sobol.quantized_direction_matrix(cfg.n_features, cfg.levels, seed=cfg.seed)

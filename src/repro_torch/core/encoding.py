@@ -1,7 +1,7 @@
-"""Quantization, table-free uHD encoding, bundling and binarization.
+"""Quantization, uHD encoding (table and table-free), bundling and binarization.
 
 The torch counterpart of the parts of ``repro.core.encoding`` that the
-``uhd_dynamic`` path runs.  A pixel h with quantized intensity x_h and
+``uhd`` and ``uhd_dynamic`` paths run.  A pixel h with quantized intensity x_h and
 Sobol thresholds S[h, :] contributes the level hypervector
 ``L_h[d] = +1 if x_h >= S[h, d] else -1``; an image hypervector is
 ``sum_h L_h`` (no position hypervectors, no binding).  Every function
@@ -19,15 +19,34 @@ def quantize_images(
 ) -> torch.Tensor:
     """Quantize intensities in [0, max_val] to int32 levels in [0, levels].
 
-    float32 ``floor(clip(x / max_val) * levels)``, as the JAX package
-    computes it.  The divisor is a tensor on the images' device: with a
-    Python-number divisor, PyTorch's CUDA division multiplies by the
-    reciprocal instead, which can move a quantization boundary.
+    float32 ``floor(clip(x * r, 0, 1) * levels)`` with ``r =
+    float32(1) / float32(max_val)``: the form XLA compiles the JAX
+    package's ``x / max_val`` to under ``jax.jit``.  The JAX package is
+    not consistent with itself here: its eager ``quantize_images`` and
+    ``HDCModel.encode`` divide, while its jitted ``fit``,
+    ``partial_fit``, ``predict``, ``predict_packed`` and
+    ``search_packed`` multiply, and the two differ on a few non-integer
+    intensities in a million (never on an integer one).  The port
+    follows the jitted paths, since class sums and served labels come
+    from them.  ``r`` is a float32 tensor on the images' device, so the
+    CPU and the card run the same multiply (a Python-number divisor
+    would leave the choice to each device's division).
     """
     x = images.to(torch.float32)
-    div = torch.full((), max_val, dtype=torch.float32, device=x.device)
-    x = torch.clamp(x / div, 0.0, 1.0)
+    inv = torch.full((), float(np.float32(1.0) / np.float32(max_val)), dtype=torch.float32,
+                     device=x.device)
+    x = torch.clamp(x * inv, 0.0, 1.0)
     return torch.floor(x * levels).to(torch.int32)
+
+
+def uhd_encode(x_q: torch.Tensor, sobol_q: torch.Tensor) -> torch.Tensor:
+    """Position-free Sobol encode+bundle over a stored table, by one
+    broadcast compare: (B, H) int, (H, D) int -> (B, D) int32,
+    ``hv[b, d] = 2 * #{h : x[b, h] >= S[h, d]} - H``.  The (B, H, D)
+    transient makes it a test oracle for small shapes only."""
+    h = x_q.shape[-1]
+    ge = x_q.to(torch.int32)[:, :, None] >= sobol_q.to(torch.int32)[None, :, :]
+    return 2 * ge.sum(dim=1, dtype=torch.int32) - h
 
 
 def uhd_encode_dynamic(

@@ -1,7 +1,7 @@
 """`HDCModel`: config + codebooks + class-sum state, as an ``nn.Module``.
 
 The torch counterpart of ``repro.core.hdc_model``.  The codebook
-(``direction`` for ``uhd_dynamic``) and the raw int32 class-sum
+(``sobol`` for ``uhd``, ``direction`` for ``uhd_dynamic``) and the raw int32 class-sum
 accumulator ``class_sums`` are registered buffers on one explicit
 device; ``n_seen`` is a Python int, exact to 2**64, and crosses
 checkpoints as the JAX package's (2,) uint32 [hi, lo] split counter.
@@ -19,6 +19,7 @@ the CPU by itself.
 
 from __future__ import annotations
 
+import dataclasses
 from pathlib import Path
 from typing import Any, Iterable
 
@@ -222,6 +223,27 @@ class HDCModel(nn.Module):
     def reset(self) -> "HDCModel":
         """Drop accumulated class state (codebooks are kept)."""
         return self._with_state(torch.zeros_like(self.class_sums), 0)
+
+    def convert(self, encoder: str) -> "HDCModel":
+        """This model under another encoder of the same family, keeping
+        its class sums and ``n_seen`` (a copy) and rebuilding the
+        codebooks from the config; the backend becomes ``"auto"``.  The
+        use: train with the ``uhd`` table, serve table-free with the
+        ~1000x smaller ``uhd_dynamic`` codebook.  Conversion across
+        families raises ``ValueError``: their class sums do not carry
+        over."""
+        cur, new = self.encoder, registry.get_encoder(encoder)
+        if (cur.family or cur.name) != (new.family or new.name):
+            raise ValueError(
+                f"cannot convert encoder {cur.name!r} (family {cur.family or cur.name!r}) "
+                f"to {new.name!r} (family {new.family or new.name!r}): class sums only "
+                "transfer between encoders with bit-identical encode semantics"
+            )
+        cfg = dataclasses.replace(self.cfg, encoder=encoder, backend="auto")
+        return HDCModel(
+            cfg, new.build_codebooks(cfg), self.class_sums.clone(), self.n_seen,
+            device=self.device,
+        )
 
     def predict(self, images) -> torch.Tensor:
         """Encode queries, score against the class HVs, argmax -> (B,) int32."""

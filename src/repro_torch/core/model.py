@@ -32,7 +32,7 @@ class HDCConfig:
     n_classes: int
     d: int = 8192  # hypervector dimensionality D
     levels: int = 16  # quantization levels (M = log2(levels) bits)
-    encoder: str = "uhd"  # a registered encoder (the port has "uhd_dynamic")
+    encoder: str = "uhd"  # a registered encoder ("uhd" or "uhd_dynamic")
     seed: int = 0
     sobol_skip: int = 1
     class_binarize: str = "auto"  # "auto" | "sign" | "none"

@@ -64,6 +64,10 @@ class EncoderBase:
     """Base class for registered encoders (see ``repro.core.registry``)."""
 
     name: str = ""
+    #: Encoders that encode bit-identically from the same config share
+    #: a family name; ``HDCModel.convert`` moves class state only within
+    #: a family.  Empty means "own name only".
+    family: str = ""
     #: platform -> preference order; "default" is the fallback entry.
     auto_order: dict[str, tuple[str, ...]] = {"default": ("ref",)}
     default_class_binarize: str = "sign"

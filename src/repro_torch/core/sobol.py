@@ -1,11 +1,13 @@
-"""Sobol direction numbers for the table-free uHD encoder (numpy).
+"""Sobol direction numbers and threshold tables for the uHD encoders (numpy).
 
-A copy of the direction-number half of ``repro.core.sobol`` (the port
+A copy of ``repro.core.sobol`` less its discrepancy helpers (the port
 imports nothing of the JAX package): primitive polynomials over GF(2),
-seeded odd initial direction integers, and the M-bit quantized
-direction matrix that is the whole codebook of ``uhd_dynamic``.  The
-numbers are bit-identical to the JAX package's for every
-``(n_dims, levels, seed)``; ``tests/test_torch_core.py`` pins that.
+seeded odd initial direction integers, the M-bit quantized direction
+matrix that is the whole codebook of ``uhd_dynamic``, and the Gray-code
+sequence that fills the (H, D) threshold table of ``uhd``.  The numbers
+are bit-identical to the JAX package's for every ``(n_dims, levels,
+seed, skip)``; ``tests/test_torch_core.py`` and
+``tests/test_torch_table.py`` pin that.
 """
 
 from __future__ import annotations
@@ -168,3 +170,56 @@ def quantized_direction_dtype(levels: int) -> np.dtype:
     template can never drift from what ``build_codebooks`` produces."""
     m = int(levels).bit_length() - 1
     return np.dtype(np.uint8 if m <= 8 else np.uint16 if m <= 16 else np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Sequence generation (vectorized Gray-code construction)
+# ---------------------------------------------------------------------------
+
+
+def sobol_integers(n_dims: int, n_points: int, *, seed: int = 0, skip: int = 1) -> np.ndarray:
+    """Raw Sobol integers in [0, 2^N_BITS), shape (n_points, n_dims) uint64.
+
+    Point k is XOR of direction numbers selected by the bits of gray(k).
+    `skip` drops the leading points (the all-zeros point 0 by default).
+    """
+    v = direction_matrix(n_dims, seed)  # (n_dims, N_BITS)
+    idx = np.arange(skip, skip + n_points, dtype=np.uint64)
+    gray = idx ^ (idx >> np.uint64(1))
+    out = np.zeros((n_points, n_dims), dtype=np.uint64)
+    for bit in range(int(gray.max()).bit_length() if n_points else 0):
+        mask = (gray >> np.uint64(bit)) & np.uint64(1)
+        out ^= mask[:, None] * v[None, :, bit]
+    return out
+
+
+def sobol_sequence(
+    n_dims: int, n_points: int, *, seed: int = 0, skip: int = 1, dtype=np.float32
+) -> np.ndarray:
+    """Sobol points in [0, 1), shape (n_points, n_dims)."""
+    ints = sobol_integers(n_dims, n_points, seed=seed, skip=skip)
+    return (ints.astype(np.float64) / float(1 << N_BITS)).astype(dtype)
+
+
+def quantized_sobol(
+    n_dims: int, n_points: int, levels: int, *, seed: int = 0, skip: int = 1
+) -> np.ndarray:
+    """xi-level quantized Sobol scalars, int32 in [0, levels): the top
+    log2(levels) bits of each Sobol integer (the paper's M-bit BRAM)."""
+    if levels & (levels - 1):
+        raise ValueError(f"levels must be a power of two, got {levels}")
+    shift = np.uint64(N_BITS - int(levels).bit_length() + 1)
+    ints = sobol_integers(n_dims, n_points, seed=seed, skip=skip)
+    return (ints >> shift).astype(np.int32)
+
+
+def sobol_table_for_features(
+    n_features: int, d: int, levels: int | None = None, *, seed: int = 0, skip: int = 1
+) -> np.ndarray:
+    """Sobol threshold table laid out (n_features, D) as the ``uhd``
+    encoder uses it: feature h takes Sobol dimension h, and the D points
+    along it are its thresholds.  ``levels=None`` gives float32 in
+    [0, 1); otherwise int32 quantized to [0, levels)."""
+    if levels is None:
+        return sobol_sequence(n_features, d, seed=seed, skip=skip).T.copy()
+    return quantized_sobol(n_features, d, levels, seed=seed, skip=skip).T.copy()

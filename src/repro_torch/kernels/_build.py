@@ -32,6 +32,8 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 #: C entry points and their argument types (see the sources).
 SIGNATURES = {
+    "uhd_encode_bundle": (_P, _P, _I, _P, _I, _I, _I, _P),
+    "uhd_fit_bundle": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
     "uhd_encode_bundle_dynamic": (_P, _P, _I, _P, _I, _I, _I, _L, _P),
     "uhd_fit_bundle_dynamic": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _L, _P),
     "uhd_hamming_topk": (_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P),

@@ -21,6 +21,8 @@ import torch
 from repro_torch.kernels import _build, ref
 
 LAUNCHES: dict[str, int] = {
+    "encode_bundle": 0,
+    "fit_bundle": 0,
     "encode_bundle_dynamic": 0,
     "fit_bundle_dynamic": 0,
     "hamming_topk": 0,
@@ -30,6 +32,7 @@ LAUNCHES: dict[str, int] = {
 _MAX_ENCODE_ROWS = 65535 * 32
 _MAX_FIT_ROWS = 65535 * 128
 _DIR_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
+_TABLE_DTYPES = (torch.int8, torch.int32)
 
 
 def reset_launches() -> None:
@@ -74,6 +77,68 @@ def _direction_args(x: torch.Tensor, direction: torch.Tensor):
     if direction.dtype not in _DIR_DTYPES:
         raise ValueError(f"direction dtype {direction.dtype} not in {_DIR_DTYPES}")
     return direction.contiguous(), direction.element_size()
+
+
+def _table_args(x: torch.Tensor, sobol_q: torch.Tensor):
+    if x.dim() != 2:
+        raise ValueError(f"x_q must be (B, H), got {tuple(x.shape)}")
+    if sobol_q.dim() != 2 or sobol_q.shape[0] != x.shape[1]:
+        raise ValueError(
+            f"sobol_q must be (H, D) with H = {x.shape[1]}, got {tuple(sobol_q.shape)}"
+        )
+    if sobol_q.dtype not in _TABLE_DTYPES:
+        raise ValueError(f"sobol_q dtype {sobol_q.dtype} not in {_TABLE_DTYPES}")
+    return sobol_q.contiguous(), sobol_q.element_size()
+
+
+def encode_bundle(x_q: torch.Tensor, sobol_q: torch.Tensor) -> torch.Tensor:
+    """Encode+bundle over a stored threshold table, (B, H) int, (H, D)
+    int8 or int32 -> (B, D) int32; the kernel reads the table in its
+    stored width.  Semantics: ``ref.encode_bundle``."""
+    if _on_cpu(x_q, sobol_q):
+        return ref.encode_bundle(x_q, sobol_q)
+    x = x_q.to(torch.int32).contiguous()
+    tab, tab_bytes = _table_args(x, sobol_q)
+    b, h = x.shape
+    d = tab.shape[1]
+    if b > _MAX_ENCODE_ROWS:
+        raise ValueError(f"encode_bundle takes at most {_MAX_ENCODE_ROWS} rows, got {b}")
+    out = torch.empty((b, d), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().uhd_encode_bundle(
+            _ptr(x), _ptr(tab), tab_bytes, _ptr(out), b, h, d, _stream(x.device)
+        )
+    _check(err, "encode_bundle")
+    LAUNCHES["encode_bundle"] += 1
+    return out
+
+
+def fit_bundle(
+    x_q: torch.Tensor, sobol_q: torch.Tensor, labels: torch.Tensor, n_classes: int
+) -> torch.Tensor:
+    """Fused training step over a stored threshold table, (B, H), (H, D)
+    int8 or int32, (B,) -> (C, D) int32 class sums; labels outside
+    [0, n_classes) contribute nothing.  Semantics: ``ref.fit_bundle``."""
+    if _on_cpu(x_q, sobol_q, labels):
+        return ref.fit_bundle(x_q, sobol_q, labels, n_classes)
+    x = x_q.to(torch.int32).contiguous()
+    tab, tab_bytes = _table_args(x, sobol_q)
+    lab = labels.to(torch.int32).contiguous()
+    b, h = x.shape
+    d = tab.shape[1]
+    if lab.shape != (b,):
+        raise ValueError(f"labels must be ({b},), got {tuple(lab.shape)}")
+    if b > _MAX_FIT_ROWS:
+        raise ValueError(f"fit_bundle takes at most {_MAX_FIT_ROWS} rows, got {b}")
+    sums = torch.zeros((n_classes, d), dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.library().uhd_fit_bundle(
+            _ptr(x), _ptr(tab), tab_bytes, _ptr(lab), _ptr(sums), b, h, n_classes, d,
+            _stream(x.device),
+        )
+    _check(err, "fit_bundle")
+    LAUNCHES["fit_bundle"] += 1
+    return sums
 
 
 def encode_bundle_dynamic(

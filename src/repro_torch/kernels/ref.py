@@ -2,7 +2,8 @@
 
 Each function defines the exact semantics its kernel reproduces and is
 the torch counterpart of a function in ``repro.kernels.ref`` (or of
-``repro.core.encoding.uhd_encode_dynamic``).  On a CPU tensor the
+``repro.core.encoding.uhd_encode_dynamic``).  Every plain version of an
+encode or training step tiles D, so the transient stays (B, H, block_d).  On a CPU tensor the
 wrappers in :mod:`repro_torch.kernels.ops` run these; on the card
 ``chip_smoke.py`` and the cuda-marked tests hold each kernel against
 them.  Everything is integer arithmetic, so agreement is exact.
@@ -39,11 +40,36 @@ def sobol_tile(direction: torch.Tensor, d0: int, tile: int) -> torch.Tensor:
     return acc
 
 
-def _tile_hvs(x: torch.Tensor, direction: torch.Tensor, d0: int, tile: int) -> torch.Tensor:
-    """(B, H) int32 intensities -> (B, tile) int32 hypervector columns."""
-    s = unary.to_i32(sobol_tile(direction, d0, tile))
+def _hvs(x: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(B, H) int32 intensities, (H, tile) int32 thresholds -> (B, tile)
+    int32 hypervector columns, 2 * #{h : x >= S} - H."""
     ge = x[:, :, None] >= s[None, :, :]
     return 2 * ge.sum(dim=1, dtype=torch.int32) - x.shape[1]
+
+
+def _tile_hvs(x: torch.Tensor, direction: torch.Tensor, d0: int, tile: int) -> torch.Tensor:
+    """(B, H) int32 intensities -> (B, tile) int32 hypervector columns."""
+    return _hvs(x, unary.to_i32(sobol_tile(direction, d0, tile)))
+
+
+def _encode_tiles(x_q, d, tile_hvs, block_d):
+    """(B, d) int32 hypervectors, the columns that ``tile_hvs(x, j0,
+    width)`` gives per D-tile, concatenated."""
+    x = x_q.to(torch.int32)
+    tiles = [tile_hvs(x, j0, min(block_d, d - j0)) for j0 in range(0, d, block_d)]
+    return torch.cat(tiles, dim=1) if tiles else x.new_zeros((x.shape[0], 0))
+
+
+def encode_bundle(x_q: torch.Tensor, sobol_q: torch.Tensor, *, block_d: int = 512) -> torch.Tensor:
+    """Encode+bundle over a stored threshold table:
+    hv[b, d] = sum_h (2*[x[b, h] >= S[h, d]] - 1), (B, H), (H, D) -> (B, D)
+    int32.  The table may be stored int8 or int32; it is compared as
+    int32.  D is tiled, so the peak transient is (B, H, block_d) booleans.
+    """
+    return _encode_tiles(
+        x_q, sobol_q.shape[-1],
+        lambda x, j0, w: _hvs(x, sobol_q[:, j0 : j0 + w].to(torch.int32)), block_d,
+    )
 
 
 def encode_bundle_dynamic(
@@ -55,12 +81,9 @@ def encode_bundle_dynamic(
     Thresholds are generated per D-tile and discarded; the peak
     transient is (B, H, block_d) booleans.
     """
-    x = x_q.to(torch.int32)
-    tiles = [
-        _tile_hvs(x, direction, skip + j0, min(block_d, d - j0))
-        for j0 in range(0, d, block_d)
-    ]
-    return torch.cat(tiles, dim=1) if tiles else x.new_zeros((x.shape[0], 0))
+    return _encode_tiles(
+        x_q, d, lambda x, j0, w: _tile_hvs(x, direction, skip + j0, w), block_d
+    )
 
 
 def class_onehot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
@@ -69,6 +92,35 @@ def class_onehot(labels: torch.Tensor, n_classes: int) -> torch.Tensor:
     lab = labels.to(torch.int64)
     classes = torch.arange(n_classes, dtype=torch.int64, device=labels.device)
     return (lab[None, :] == classes[:, None]).to(torch.int32)
+
+
+def _segment_sums(x_q, labels, n_classes, d, tile_hvs, block_d):
+    """(C, d) int32 class sums of the hypervector columns that
+    ``tile_hvs(x, j0, width)`` gives per D-tile; rows whose label is
+    outside ``[0, n_classes)`` are dropped first."""
+    x = x_q.to(torch.int32)
+    lab = labels.to(torch.int64)
+    keep = (lab >= 0) & (lab < n_classes)
+    x, lab = x[keep], lab[keep]
+    out = torch.zeros((n_classes, d), dtype=torch.int32, device=x_q.device)
+    for j0 in range(0, d, block_d):
+        hv = tile_hvs(x, j0, min(block_d, d - j0))
+        out[:, j0 : j0 + hv.shape[1]].index_add_(0, lab, hv)
+    return out
+
+
+def fit_bundle(
+    x_q: torch.Tensor, sobol_q: torch.Tensor, labels: torch.Tensor, n_classes: int,
+    *, block_d: int = 512,
+) -> torch.Tensor:
+    """Fused training step over a stored table (the JAX package's D-tile
+    scan): (B, H), (H, D) int8 or int32, (B,) -> (C, D) int32 class sums,
+    sums[c, j] = sum over rows labelled c of hv[b, j].  Labels outside
+    ``[0, n_classes)`` contribute nothing."""
+    return _segment_sums(
+        x_q, labels, n_classes, sobol_q.shape[-1],
+        lambda x, j0, w: _hvs(x, sobol_q[:, j0 : j0 + w].to(torch.int32)), block_d,
+    )
 
 
 def fit_bundle_dynamic(
@@ -82,15 +134,10 @@ def fit_bundle_dynamic(
     an int32 segment sum before the next tile; labels outside
     ``[0, n_classes)`` contribute nothing.
     """
-    x = x_q.to(torch.int32)
-    lab = labels.to(torch.int64)
-    keep = (lab >= 0) & (lab < n_classes)
-    x, lab = x[keep], lab[keep]
-    out = torch.zeros((n_classes, d), dtype=torch.int32, device=x_q.device)
-    for j0 in range(0, d, block_d):
-        hv = _tile_hvs(x, direction, skip + j0, min(block_d, d - j0))
-        out[:, j0 : j0 + hv.shape[1]].index_add_(0, lab, hv)
-    return out
+    return _segment_sums(
+        x_q, labels, n_classes, d,
+        lambda x, j0, w: _tile_hvs(x, direction, skip + j0, w), block_d,
+    )
 
 
 def _sort_pairs(dist: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,0 +1,100 @@
+"""The paper's system end to end on one device: uHD single-pass training.
+
+    PYTHONPATH=src python -m repro_torch.launch.train_hdc                # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train_hdc --device cpu --d 1024
+
+The torch counterpart of ``repro.launch.train_hdc`` (its single-device
+path, with its defaults): create -> fit_batches (streamed, one fused
+training step a batch) -> evaluate (cosine ``predict``) -> with
+``--save-dir``, save, load and check the round trip.  The device is the
+only datapath switch: on the card the ``uhd`` encoder runs the CUDA
+kernels ``fit_bundle`` and ``encode_bundle``, on the CPU their plain
+versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.core import HDCConfig, HDCModel
+from repro_torch.core.hdc_model import resolve_device
+from repro_torch.data import load_dataset
+
+
+@dataclasses.dataclass
+class TrainResult:
+    model: HDCModel
+    accuracy: float
+    fit_s: float  # fit_batches wall seconds, synchronised
+    eval_s: float  # evaluate wall seconds
+    round_trip_ok: bool | None  # None without --save-dir
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def train(args) -> TrainResult:
+    """Train, evaluate and (with ``args.save_dir``) checkpoint one model."""
+    device = resolve_device(args.device)
+    ds = load_dataset(args.dataset, n_train=args.n_train, n_test=args.n_test)
+    tag = " (synthetic)" if ds.synthetic else ""
+    print(f"dataset {ds.name}{tag}: {ds.train_images.shape[0]} train / "
+          f"{ds.test_images.shape[0]} test, {ds.n_classes} classes")
+    cfg = HDCConfig(
+        n_features=ds.n_features, n_classes=ds.n_classes, d=args.d,
+        levels=args.levels, encoder=args.encoder,
+    )
+
+    def batches():
+        for i in range(0, len(ds.train_images), args.batch_size):
+            yield (ds.train_images[i : i + args.batch_size],
+                   ds.train_labels[i : i + args.batch_size])
+
+    fresh = HDCModel.create(cfg, device=device)
+    t0 = time.perf_counter()
+    model = fresh.fit_batches(batches())
+    _sync(device)
+    t1 = time.perf_counter()
+    acc = model.evaluate(ds.test_images, ds.test_labels)
+    t2 = time.perf_counter()
+    print(f"{args.encoder}  D={args.d} device={device.type}: accuracy {acc:.4f}  "
+          f"({model.n_examples} images, single pass, fit {t1 - t0:.3f}s, "
+          f"evaluate {t2 - t1:.3f}s)")
+
+    ok = None
+    if args.save_dir:
+        model.save(args.save_dir, step=0)
+        restored = HDCModel.load(args.save_dir, device=device)
+        ok = restored.cfg == model.cfg and torch.equal(restored.class_sums, model.class_sums)
+        print(f"checkpointed to {args.save_dir} (round-trip ok: {ok})")
+    return TrainResult(model, acc, t1 - t0, t2 - t1, ok)
+
+
+def parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", default="synth_mnist")
+    ap.add_argument("--d", type=int, default=8192)
+    ap.add_argument("--levels", type=int, default=16)
+    ap.add_argument("--n-train", type=int, default=4096)
+    ap.add_argument("--n-test", type=int, default=1024)
+    ap.add_argument("--encoder", default="uhd", help="registered encoder (uhd | uhd_dynamic)")
+    ap.add_argument("--batch-size", type=int, default=2048)
+    ap.add_argument("--save-dir", default=None, help="checkpoint the trained HDCModel here")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the kernels run on cuda, the plain versions on cpu")
+    return ap
+
+
+def main(argv=None) -> int:
+    result = train(parser().parse_args(argv))
+    return 0 if result.round_trip_ok in (None, True) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

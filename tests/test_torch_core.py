@@ -17,6 +17,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -33,6 +34,7 @@ from repro_torch.core import registry as treg
 from repro_torch.core import sobol as tsobol
 from repro_torch.core import unary as tunary
 from repro_torch.core.model import HDCConfig, config_from_manifest, manifest_config
+from repro_torch.data import load_dataset as tload
 from repro_torch.serving import ServingEngine
 from repro_torch.serving.execution import resolve_impl
 
@@ -78,26 +80,40 @@ def test_popcount_of_extreme_words():
     assert tunary.popcount(torch.from_numpy(words)).tolist() == [0 + 32 + 1 + 1 + 31 + 16]
 
 
-@pytest.mark.parametrize("levels", [2, 16, 256])
+@pytest.mark.parametrize("levels", [2, 16, 64, 256])
 def test_quantize_images_all_intensities_equal_jax(levels):
+    """Held against ``jax.jit`` of the JAX function: every model path of
+    the JAX package quantizes inside jit, where XLA multiplies by
+    float32(1/255) instead of dividing (the eager function divides)."""
+    jq = jax.jit(jenc.quantize_images, static_argnums=1)
     x = np.arange(256, dtype=np.float32)[None, :]
-    want = np.asarray(jenc.quantize_images(jnp.asarray(x), levels))
+    want = np.asarray(jq(jnp.asarray(x), levels))
     got = tenc.quantize_images(torch.from_numpy(x), levels)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
-    # non-integer intensities: XLA divides by 255 (no reciprocal multiply)
+    # integer intensities agree with the eager (dividing) function too
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jenc.quantize_images(jnp.asarray(x), levels)))
+    # non-integer intensities: 2**20 random floats, out-of-range ones included
     rng = np.random.default_rng(levels)
-    x = rng.uniform(0, 255, (64, 784)).astype(np.float32)
+    x = rng.uniform(-5, 260, (1024, 1024)).astype(np.float32)
     np.testing.assert_array_equal(
-        tenc.quantize_images(torch.from_numpy(x), levels).numpy(),
-        np.asarray(jenc.quantize_images(jnp.asarray(x), levels)),
+        tenc.quantize_images(torch.from_numpy(x), levels).numpy(), np.asarray(jq(jnp.asarray(x), levels))
     )
     # out-of-range intensities clip like the JAX package's
     edge = np.asarray([[-3.0, 255.5, 1e9]], np.float32)
     np.testing.assert_array_equal(
         tenc.quantize_images(torch.from_numpy(edge), levels).numpy(),
-        np.asarray(jenc.quantize_images(jnp.asarray(edge), levels)),
+        np.asarray(jq(jnp.asarray(edge), levels)),
     )
+    # the known boundary pixel: synth_mnist (n_train=4096) image 533, pixel 471
+    v = tload("synth_mnist", n_train=4096, n_test=1).train_images[533, 471]
+    assert v == np.float32(239.06248)
+    px = np.asarray([[v]], np.float32)
+    got = int(tenc.quantize_images(torch.from_numpy(px), levels)[0, 0])
+    assert got == int(jq(jnp.asarray(px), levels)[0, 0])
+    if levels == 16:
+        assert got == 15  # the jitted JAX paths' level
+        assert int(jenc.quantize_images(jnp.asarray(px), levels)[0, 0]) == 14  # eager JAX divides
 
 
 def test_bundle_by_class_and_label_validation_equal_jax():
@@ -162,7 +178,7 @@ def test_config_validation_and_manifest_backend_names():
     with pytest.raises(ValueError, match="power of two"):
         HDCConfig(n_features=4, n_classes=2, levels=12, encoder="uhd_dynamic")
     with pytest.raises(ValueError, match="unknown encoder"):
-        HDCConfig(n_features=4, n_classes=2)  # the table encoder is not ported yet
+        HDCConfig(n_features=4, n_classes=2, encoder="baseline")  # not ported yet
     with pytest.raises(ValueError, match="unknown backend 'pallas'"):
         HDCConfig(n_features=4, n_classes=2, encoder="uhd_dynamic", backend="pallas")
     cfg = HDCConfig(n_features=4, n_classes=2, encoder="uhd_dynamic", backend="cuda")
@@ -173,6 +189,16 @@ def test_config_validation_and_manifest_backend_names():
     assert config_from_manifest(raw) == dataclasses.replace(cfg, backend="auto")
     raw_j = dict(raw, backend="ref", use_kernels=None, encode_impl=None)
     assert config_from_manifest(raw_j).backend == "auto"
+
+
+def test_default_config_constructs_as_in_jax():
+    """``HDCConfig`` with default arguments names the ``uhd`` encoder in
+    both packages, and the port registers it."""
+    cfg, jcfg = HDCConfig(n_features=4, n_classes=2), JConfig(n_features=4, n_classes=2)
+    assert cfg.encoder == jcfg.encoder == "uhd"
+    raw = manifest_config(cfg)
+    assert {k: v for k, v in dataclasses.asdict(jcfg).items() if k in raw} == raw
+    assert treg.get_encoder("uhd").family == treg.get_encoder("uhd_dynamic").family == "uhd"
 
 
 def test_backend_and_impl_follow_the_device():
@@ -205,7 +231,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.launch.serve_hdc, repro_torch.serving.engine\n"
-        "import repro_torch.convert, repro_torch.kernels.ops\n"
+        "import repro_torch.convert, repro_torch.kernels.ops, repro_torch.launch.train_hdc\n"
+        "import repro_torch.core.item_memory, repro_torch.core.encoders\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
