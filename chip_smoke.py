@@ -11,9 +11,11 @@ Phases, each printed as one JSON object per line:
    shared-memory lines;
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main paths' shapes and at ragged ones, for exact equality (the datapath
-   is integer: the tolerance is 0), then timed with CUDA events; for the
-   table encode, one ``torch._int_mm`` call computing the same counts is
-   timed beside it as the library yardstick (the port never calls it);
+   is integer: the tolerance is 0), then timed with CUDA events (``ms``, a
+   call's wall share included) and by ``torch.profiler`` (``device_ms``, the
+   device's share alone); for the table encode and for ``hamming_packed``,
+   one ``torch._int_mm`` call computing the same result is timed beside it
+   as the library yardstick (the port never calls it);
 4. slice: ``repro_torch.launch.serve_hdc``'s smoke at the JAX smoke's
    configuration (synth_mnist, d=8192, levels=16, 1024 training images, 256
    requests in batches of 64), once with ``uhd_dynamic`` and once with ``uhd``,
@@ -28,8 +30,22 @@ Phases, each printed as one JSON object per line:
    package's, and the checkpoint round trip;
 6. item_memory: an ``ItemMemory`` of 65,536 random rows at d=8192 (64 MiB),
    after a delete and more adds, searched with k=8 against the plain version;
-7. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
-   encoder: device time per batch by kernel, and the device's idle share.
+7. sharded: for each encoder at D=8192 and at D=8160 (8160 / 4 = 2040 bits a
+   shard, not whole words), ``partial_fit_sharded`` of the smoke's 512 + 512
+   images on the card's own mesh and on a (data 2, model 4) mesh of one card,
+   the class sums against the JAX package's checksums (D=8192) or the
+   single-device ``partial_fit`` (D=8160); those models saved as 4 per-host
+   checkpoint shards and the smoke's stream served from them through
+   ``ShardedExecution`` on 1 and 4 shards (the ``hamming_packed`` kernel),
+   labels and ``search(k=3)`` against the ``DeviceExecution`` engine and the
+   accuracy against the JAX package's;
+8. sharded_search: phase 6's 65,548 rows searched (k=8) through
+   ``ShardedExecution`` on 1 and 4 shards, against the single-device search;
+9. train_shard_map: ``train_hdc --shard-map --ckpt-shards 4`` at its defaults,
+   its class sums against the JAX package's checksum, and the round trip;
+10. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
+   encoder, on one device and on 4 shards: device time per batch by kernel,
+   and the device's idle share.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -127,6 +143,10 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/hamming_topk.cu",
         replaces="src/repro/kernels/hamming_topk.py:80",
     ),
+    "hamming_packed": dict(
+        source="src/repro_torch/kernels/csrc/hamming_packed.cu",
+        replaces="src/repro/kernels/hamming_packed.py:34",
+    ),
 }
 # the shape each kernel's entry of the kernels line reports (others follow it)
 MAIN_SHAPE = {
@@ -135,6 +155,7 @@ MAIN_SHAPE = {
     "fit_bundle": {"B": 512, "H": 784, "D": 8192, "C": 10, "table": "int8"},
     "fit_bundle_dynamic": {"B": 512, "H": 784, "D": 8192, "C": 10, "skip": 1},
     "hamming_topk": {"B": 64, "C": 10, "D": 8192, "k": 1},
+    "hamming_packed": {"B": 64, "C": 10, "D": 8192},
 }
 
 
@@ -154,6 +175,24 @@ def time_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int):
+    """Device time per call of fn: the self time of the kernels and copies
+    it ran, summed over `iters` calls under ``torch.profiler``.  Unlike
+    ``time_ms`` it leaves out the host's share of a call, which is what a
+    launch-bound kernel's event time measures."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / iters / 1e3 if total_us else "not measured"
 
 
 def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
@@ -184,6 +223,27 @@ def library_int_mm(torch, results, got, x, tab, levels, shape) -> None:
     results["encode_bundle"]["timed"][json.dumps(shape, sort_keys=True)]["library_ms"] = ms
 
 
+def library_packed_int_mm(torch, results, got, bits_q, bits_r, shape) -> None:
+    """Time ``torch._int_mm`` computing the packed scores exactly: the ±1
+    int8 sign vectors, (B, D) times (D, C), with C padded to a multiple of
+    16 for its shape rules.  The operands are built outside the timed
+    region; the result must equal the kernel's."""
+    c = bits_r.shape[0]
+    pad = -c % 16
+    a = bits_q.to(torch.int8) * 2 - 1
+    rows = torch.cat([bits_r, bits_r.new_zeros((pad, bits_r.shape[1]))]) if pad else bits_r
+    b = (rows.to(torch.int8) * 2 - 1).t().contiguous()
+    scores = torch._int_mm(a, b)[:, :c]
+    torch.cuda.synchronize()
+    equal = torch.equal(scores, got)
+    ms = time_ms(torch, lambda: torch._int_mm(a, b), 20)
+    emit("library_time", kernel="hamming_packed", call="torch._int_mm", shape=shape, ms=ms,
+         equal=equal, padded_c=c + pad)
+    if not equal:
+        raise AssertionError("torch._int_mm's scores differ from hamming_packed's")
+    results["hamming_packed"]["timed"][json.dumps(shape, sort_keys=True)]["library_ms"] = ms
+
+
 def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
     """Each kernel against its plain version; times at the serving shapes."""
     dev = torch.device("cuda")
@@ -212,12 +272,14 @@ def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
         if timed is not None:
             kernel_fn, plain_fn, n_bytes, n_ops = timed
             ms = time_ms(torch, kernel_fn, 50)
+            dev_ms = device_ms(torch, kernel_fn, 20)
             plain = time_ms(torch, plain_fn, 3)
             b_ms, b_by = bound_ms(n_bytes, n_ops)
-            emit("kernel_time", kernel=name, shape=shape, ms=ms, plain_ms=plain,
-                 bound_ms=b_ms, bound_by=b_by)
+            emit("kernel_time", kernel=name, shape=shape, ms=ms, device_ms=dev_ms,
+                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
             r.setdefault("timed", {})[json.dumps(shape, sort_keys=True)] = dict(
-                ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by, shape=shape
+                ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                shape=shape,
             )
 
     # -- encode_bundle: the serving batch, then ragged cases, one with an int32
@@ -300,6 +362,29 @@ def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
         n_bytes = b * w * 4 + c * w * 4 + 2 * b * k * 4
         check("hamming_topk", list(got), list(want), dict(B=b, C=c, D=d, k=k),
               (k_fn, p_fn, n_bytes, 3 * b * c * w) if d == 8192 else None)
+
+    # -- hamming_packed: a shard's score at one shard (D=8192), at four
+    #    shards (2048 each), ragged (8160 over four: 2040, not whole words),
+    #    and the sharded search over a 64 MiB store; then tiny ragged cases -
+    for b, c, d in [(64, 10, 8192), (64, 10, 2048), (64, 10, 2040), (64, 65536, 8192),
+                    (37, 130, 257), (3, 7, 33)]:
+        w = unary.n_words(d)
+        bits_q = torch.rand((b, d), generator=gen, device=dev) < 0.5
+        bits_r = torch.rand((c, d), generator=gen, device=dev) < 0.5
+        bits_r[c - 1] = bits_r[0]  # duplicate rows: equal scores
+        bits_r[1] = bits_q[0]  # an exact match: score d
+        q, rows = unary.pack_bits(bits_q), unary.pack_bits(bits_r)
+        k_fn = lambda: ops.hamming_packed(q, rows, d)  # noqa: E731
+        p_fn = lambda: ref.hamming_packed(q, rows, d)  # noqa: E731
+        got = k_fn()
+        torch.cuda.synchronize()
+        shape = dict(B=b, C=c, D=d)
+        timed = b == 64
+        n_bytes = (b * w + c * w + b * c) * 4
+        check("hamming_packed", [got], [p_fn()], shape,
+              (k_fn, p_fn, n_bytes, 3 * b * c * w) if timed else None)
+        if timed:
+            library_packed_int_mm(torch, results, got, bits_q, bits_r, shape)
     return results
 
 
@@ -430,16 +515,163 @@ def item_memory_phase(torch, ops, ref, ItemMemory):
          equal_plain=equal, stored_query_first_at_0=first_hit)
     if len(mem) != len(stored) or not (equal and first_hit):
         raise AssertionError("ItemMemory.search disagrees with the plain version")
+    return launches, stored
+
+
+def sharded_phase(torch, ops, api, encoder: str, d: int, dev):
+    """D-sharded training and serving at the smoke's configuration.
+
+    ``partial_fit_sharded`` of 512 + 512 images on the card's own
+    ``(data, model)`` mesh (``mesh_for()``) and on a (data 2, model 4) mesh
+    of one device, each step's class sums held against the JAX package's
+    checksums (D = 8192) or the single-device ``partial_fit`` (other D);
+    the (2, 4) steps checkpointed as 4 per-host shards; then the smoke's
+    stream (128 requests on step 0, 128 on step 1, batches of 64) served
+    through ``ShardedExecution`` on 1 and 4 shards, loaded from those
+    shards, with labels, accuracy and ``search(k=3)`` held against the
+    ``DeviceExecution`` engines.  Returns the launches by path and the
+    4-shard step-1 engine."""
+    import numpy as np
+
+    ds = api.load_dataset("synth_mnist", n_train=1024, n_test=256)
+    cfg = api.HDCConfig(n_features=ds.n_features, n_classes=ds.n_classes, d=d, levels=16,
+                        encoder=encoder)
+    steps = [(ds.train_images[:512], ds.train_labels[:512]),
+             (ds.train_images[512:], ds.train_labels[512:])]
+    fit_kernel, enc_kernel = (("fit_bundle_dynamic", "encode_bundle_dynamic")
+                              if encoder == "uhd_dynamic" else ("fit_bundle", "encode_bundle"))
+    if d == 8192:
+        want = list(JAX_CLASS_SUMS_SHA256)
+    else:
+        single = [api.HDCModel.create(cfg, device=dev)]
+        for x, y in steps:
+            single.append(single[-1].partial_fit(x, y))
+        want = [sha256_of(m.class_sums) for m in single[1:]]
+    by_path = {}
+    meshes = {"card": api.mesh_for(devices=None if dev.type == "cuda" else [dev]),
+              "2x4": api.mesh_for(8, 4, devices=[dev] * 8)}
+    for name, mesh in meshes.items():
+        def train(mesh=mesh):
+            models = [api.HDCModel.create(cfg, device=dev)]
+            t0 = time.perf_counter()
+            for x, y in steps:
+                models.append(api.partial_fit_sharded(models[-1], x, y, mesh=mesh))
+            sync(torch, dev)
+            return models[1:], time.perf_counter() - t0
+
+        path = f"sharded_fit_{encoder}_d{d}_{name}"
+        (models, fit_s), by_path[path] = path_launches(ops, path, (fit_kernel,), train)
+        got = [sha256_of(m.class_sums) for m in models]
+        emit("sharded_fit", encoder=encoder, d=d, mesh=mesh.shape, shards=models[0].n_shards,
+             sha256=got, want_sha256=want, against="jax" if d == 8192 else "partial_fit",
+             equal=got == want, fit_s=fit_s)
+        if got != want:
+            raise AssertionError(f"sharded class sums ({encoder}, D={d}, {name}) differ")
+
+    ckpt = ROOT / "build" / f"chip_smoke_sharded_{encoder}_d{d}"
+    for step, model in enumerate(models):
+        for pi in range(4):
+            model.save_shard(ckpt, step=step, process_index=pi, process_count=4)
+        api.CheckpointManager(ckpt).finalize_shards(step)
+
+    probe = ds.test_images[:64]
+
+    def serve(execution):
+        engines = [api.ServingEngine.from_checkpoint(ckpt, step=s, batch_size=64,
+                                                     execution=execution) for s in (0, 1)]
+        stats = [api.serve_batches(engines[0], ds.test_images[:128], 64),
+                 api.serve_batches(engines[1], ds.test_images[128:], 64)]
+        labels = np.concatenate([st.labels for st in stats])
+        return engines[1], labels, engines[1].search(probe, 3), stats[0].batch_s + stats[1].batch_s
+
+    _, want_labels, (want_i, want_d), single_s = serve(api.DeviceExecution(device=dev))
+    engine = None
+    for n in ((1, 4) if d == 8192 else (4,)):
+        execution = api.ShardedExecution(devices=[dev] * n)
+        path = f"sharded_serve_{encoder}_d{d}_x{n}"
+        (engine, labels, (idx, dist), batch_s), by_path[path] = path_launches(
+            ops, path, (enc_kernel, "hamming_packed"), lambda: serve(execution)
+        )
+        acc = float((labels == ds.test_labels).mean())
+        same = bool((labels == want_labels).all())
+        same_search = bool((idx == want_i).all() and (dist == want_d).all())
+        emit("sharded_serve", encoder=encoder, d=d, shards=n, d_local=d // n,
+             accuracy=acc, labels_equal_device=same, search_equal_device=same_search,
+             batch_ms_mean=1e3 * sum(batch_s) / len(batch_s),
+             device_batch_ms_mean=1e3 * sum(single_s) / len(single_s),
+             describe=engine.describe()["execution"])
+        if not (same and same_search):
+            raise AssertionError(f"sharded serving ({encoder}, D={d}, {n} shards) differs "
+                                 "from the single-device engine")
+        if d == 8192 and round(acc, 4) != JAX_SERVED_ACCURACY:
+            raise AssertionError(f"sharded served accuracy {acc} != JAX's {JAX_SERVED_ACCURACY}")
+    return by_path, engine
+
+
+def sharded_search_phase(torch, ops, api, model, images, stored, dev):
+    """The ItemMemory phase's 65,548 stored rows searched (k=8) through
+    ``ShardedExecution`` on 1 and 4 shards with queries encoded by `model`,
+    held against the single-device search (kernel 5)."""
+    import numpy as np
+
+    rows = torch.from_numpy(np.ascontiguousarray(stored).view(np.int32)).to(dev)
+    want_i, want_d = api.DeviceExecution(device=dev).search(model, rows, images, 8)
+    by_path = {}
+    for n in (1, 4):
+        execution = api.ShardedExecution(devices=[dev] * n)
+        words = execution.shard_words(rows, model.cfg.d)
+        placed = execution.place(model)
+
+        def search(execution=execution, words=words, placed=placed):
+            t0 = time.perf_counter()
+            out = execution.search(placed, words, images, 8)
+            sync(torch, dev)
+            return out, time.perf_counter() - t0
+
+        path = f"sharded_search_x{n}"
+        ((idx, dist), wall_s), by_path[path] = path_launches(
+            ops, path, ("encode_bundle", "hamming_packed"), search
+        )
+        equal = bool(torch.equal(idx, want_i) and torch.equal(dist, want_d))
+        emit("sharded_search", rows=rows.shape[0], d=model.cfg.d, shards=n, queries=len(images),
+             k=8, equal_device_search=equal, wall_ms=wall_s * 1e3)
+        if not equal:
+            raise AssertionError(f"sharded search on {n} shards differs from kernel 5's")
+    return by_path
+
+
+def train_shard_map_phase(torch, ops, train_hdc):
+    """``train_hdc --shard-map --ckpt-shards 4`` at the launcher's defaults."""
+    args = train_hdc.parser().parse_args([
+        "--device", "cuda", "--shard-map", "--ckpt-shards", "4",
+        "--save-dir", str(ROOT / "build" / "chip_smoke_train_sharded"),
+    ])
+    result, launches = path_launches(
+        ops, "train_shard_map", ("fit_bundle", "encode_bundle"), lambda: train_hdc.train(args)
+    )
+    got = sha256_of(result.model.class_sums)
+    emit("train_shard_map", encoder=args.encoder, d=args.d, n_train=args.n_train,
+         shards=result.model.n_shards, mesh=result.model.mesh.shape, class_sums_sha256=got,
+         jax_sha256=JAX_TRAIN_SHA256, equal=got == JAX_TRAIN_SHA256, accuracy=result.accuracy,
+         fit_s=result.fit_s, evaluate_s=result.eval_s, round_trip_ok=result.round_trip_ok)
+    if got != JAX_TRAIN_SHA256:
+        raise AssertionError("train_hdc --shard-map class sums differ from the JAX package's")
+    if result.round_trip_ok is not True:
+        raise AssertionError("train_hdc --ckpt-shards 4 round trip failed")
     return launches
 
 
-def profile_phase(torch, result, batch: int, encoder: str) -> None:
+def sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def profile_phase(torch, engine, images, label: str) -> None:
     """Device time of steady-state predict batches by kernel, and the
     device's idle share of the batch wall time (``torch.profiler``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    engine = result.engines[1]
-    images = result.probe[:batch]
+    batch = len(images)
     engine.predict(images)
     torch.cuda.synchronize()
     n = 16
@@ -459,12 +691,12 @@ def profile_phase(torch, result, batch: int, encoder: str) -> None:
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     device_us = sum(r[1] for r in rows)
     if not rows:
-        emit("profile", encoder=encoder, batch=batch, batches=n,
+        emit("profile", engine=label, batch=batch, batches=n,
              wall_ms_per_batch=wall_us / n / 1e3, device_ms_per_batch="not measured",
              idle_share="not measured")
         return
     emit(
-        "profile", encoder=encoder, batch=batch, batches=n, wall_ms_per_batch=wall_us / n / 1e3,
+        "profile", engine=label, batch=batch, batches=n, wall_ms_per_batch=wall_us / n / 1e3,
         device_ms_per_batch=device_us / n / 1e3, idle_share=1.0 - device_us / wall_us,
         top=[{"name": k[:90], "ms_per_batch": t / n / 1e3, "calls_per_batch": c / n}
              for k, t, c in rows[:12]],
@@ -478,10 +710,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on a card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch.core import ItemMemory, sobol, unary
+    from types import SimpleNamespace
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core import HDCConfig, HDCModel, ItemMemory, partial_fit_sharded, sobol, unary
     from repro_torch.data import load_dataset
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve_hdc, train_hdc
+    from repro_torch.launch.mesh import mesh_for
+    from repro_torch.serving import DeviceExecution, ServingEngine, ShardedExecution
+
+    api = SimpleNamespace(
+        CheckpointManager=CheckpointManager, DeviceExecution=DeviceExecution,
+        HDCConfig=HDCConfig, HDCModel=HDCModel, ServingEngine=ServingEngine,
+        ShardedExecution=ShardedExecution, load_dataset=load_dataset, mesh_for=mesh_for,
+        partial_fit_sharded=partial_fit_sharded, serve_batches=serve_hdc.serve_batches,
+    )
 
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -514,9 +758,22 @@ def main() -> int:
         ("encode_bundle", "fit_bundle", "hamming_topk", "encode_bundle_dynamic"),
     )
     by_path["train_hdc"] = train_phase(torch, ops, train_hdc, load_dataset)
-    by_path["item_memory"] = item_memory_phase(torch, ops, ref, ItemMemory)
-    profile_phase(torch, result_dyn, 64, "uhd_dynamic")
-    profile_phase(torch, result_uhd, 64, "uhd")
+    by_path["item_memory"], stored = item_memory_phase(torch, ops, ref, ItemMemory)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sharded_engines = {}
+    for encoder, d in [("uhd_dynamic", 8192), ("uhd", 8192), ("uhd_dynamic", 8160),
+                       ("uhd", 8160)]:
+        paths, sharded_engines[encoder, d] = sharded_phase(torch, ops, api, encoder, d, dev)
+        by_path.update(paths)
+    by_path.update(sharded_search_phase(
+        torch, ops, api, result_uhd.models[1], result_uhd.probe, stored, dev
+    ))
+    by_path["train_shard_map"] = train_shard_map_phase(torch, ops, train_hdc)
+    probe = result_uhd.probe[:64]
+    profile_phase(torch, result_dyn.engines[1], probe, "uhd_dynamic")
+    profile_phase(torch, result_uhd.engines[1], probe, "uhd")
+    profile_phase(torch, sharded_engines["uhd_dynamic", 8192], probe, "uhd_dynamic, 4 shards")
+    profile_phase(torch, sharded_engines["uhd", 8192], probe, "uhd, 4 shards")
 
     line = []
     for name, meta in KERNELS.items():
@@ -526,8 +783,9 @@ def main() -> int:
         line.append({
             "name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"],
             "launches": sum(p[name] for p in by_path.values()),
-            "launches_by_path": {p: n[name] for p, n in by_path.items()},
-            "max_abs_err": r["max_abs_err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "launches_by_path": {p: n[name] for p, n in by_path.items() if n[name]},
+            "max_abs_err": r["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
+            "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t.get("library_ms"), "shape": t["shape"], "equal": True,
             "other_shapes": [v for k, v in r["timed"].items() if k != main],

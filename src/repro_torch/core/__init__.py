@@ -1,9 +1,12 @@
 """uHD core of the port: Sobol numbers, packed bits, the ``uhd`` and
-``uhd_dynamic`` encoders, `HDCModel` and `ItemMemory`."""
+``uhd_dynamic`` encoders, `HDCModel` (and its D-sharded form) and
+`ItemMemory`."""
 
 from repro_torch.core.model import HDCConfig  # noqa: F401
 from repro_torch.core.hdc_model import (  # noqa: F401
     HDCModel,
+    ShardedHDCModel,
+    partial_fit_sharded,
     predict_packed,
     resolve_device,
     search_packed,

@@ -32,6 +32,7 @@ from repro_torch.core.registry import (
     EncoderBase,
     register_backend,
     register_encoder,
+    register_encode_slice,
     register_fit_bundle,
     register_topk,
 )
@@ -84,8 +85,13 @@ def _uhd_ref_encode(cfg, books, x_q):
     return kref.encode_bundle(x_q, books["sobol"])
 
 
+# `d` and `point_offset` are ignored by the table forms: a D-shard's table
+# arrives pre-sliced in `books["sobol"]`, which fixes both its width and
+# its offset; only the generator encoder consumes them.
+
+
 @register_fit_bundle("uhd", "ref")
-def _uhd_ref_fit_bundle(cfg, books, x_q, labels):
+def _uhd_ref_fit_bundle(cfg, books, x_q, labels, *, d, point_offset):
     """Plain PyTorch D-tile scan with a per-class segment sum."""
     from repro_torch.kernels import ref as kref
 
@@ -101,7 +107,7 @@ def _uhd_cuda_encode(cfg, books, x_q):
 
 
 @register_fit_bundle("uhd", "cuda")
-def _uhd_cuda_fit_bundle(cfg, books, x_q, labels):
+def _uhd_cuda_fit_bundle(cfg, books, x_q, labels, *, d, point_offset):
     """CUDA fused encode + per-class segment-sum kernel over the table."""
     from repro_torch.kernels import ops
 
@@ -121,7 +127,11 @@ class UHDDynamicEncoder(UHDEncoder):
     """uHD encoding with no (H, D) table: the codebook is
     ``{"direction": (H, 32)}`` in the narrowest unsigned dtype holding
     ``levels - 1``, and ``cfg.sobol_skip`` sets the first Sobol point.
-    The family and its policies are ``uhd``'s."""
+    The family and its policies are ``uhd``'s.  A D-shard generates only
+    the points of its slice, ``sobol_skip + point_offset`` onwards, with
+    the (H, 32) matrix replicated."""
+
+    dynamic_generator = True
 
     def build_codebooks(self, cfg: "HDCConfig") -> dict[str, torch.Tensor]:
         dirs = sobol.quantized_direction_matrix(cfg.n_features, cfg.levels, seed=cfg.seed)
@@ -144,14 +154,28 @@ def _ref_encode(cfg, books, x_q):
     return encoding.uhd_encode_dynamic(x_q, books["direction"], cfg.d, skip=cfg.sobol_skip)
 
 
+def _skip(cfg, point_offset) -> int:
+    """First Sobol point of a (shard's) slice."""
+    return cfg.sobol_skip if point_offset is None else cfg.sobol_skip + point_offset
+
+
 @register_fit_bundle("uhd_dynamic", "ref")
-def _ref_fit_bundle(cfg, books, x_q, labels):
+def _ref_fit_bundle(cfg, books, x_q, labels, *, d, point_offset):
     """Plain PyTorch fused training step (tile-scan generation)."""
     from repro_torch.kernels import ref as kref
 
     return kref.fit_bundle_dynamic(
-        x_q, books["direction"], labels, cfg.n_classes, cfg.d, skip=cfg.sobol_skip
+        x_q, books["direction"], labels, cfg.n_classes, d, skip=_skip(cfg, point_offset)
     )
+
+
+@register_encode_slice("uhd_dynamic", "ref")
+def _ref_encode_slice(cfg, books, x_q, *, d, point_offset):
+    """Plain PyTorch D-slice generation: points ``[skip + offset,
+    skip + offset + d)`` only."""
+    from repro_torch.core import encoding
+
+    return encoding.uhd_encode_dynamic(x_q, books["direction"], d, skip=_skip(cfg, point_offset))
 
 
 @register_backend("uhd_dynamic", "cuda", available=_on_card)
@@ -163,13 +187,22 @@ def _cuda_encode(cfg, books, x_q):
 
 
 @register_fit_bundle("uhd_dynamic", "cuda")
-def _cuda_fit_bundle(cfg, books, x_q, labels):
+def _cuda_fit_bundle(cfg, books, x_q, labels, *, d, point_offset):
     """CUDA fused generate + encode + per-class segment-sum kernel."""
     from repro_torch.kernels import ops
 
     return ops.fit_bundle_dynamic(
-        x_q, books["direction"], labels, cfg.n_classes, cfg.d, skip=cfg.sobol_skip
+        x_q, books["direction"], labels, cfg.n_classes, d, skip=_skip(cfg, point_offset)
     )
+
+
+@register_encode_slice("uhd_dynamic", "cuda")
+def _cuda_encode_slice(cfg, books, x_q, *, d, point_offset):
+    """CUDA encode kernel re-aimed at a D-slice: its ``skip`` is a run-time
+    argument, so a shard's slice goes through the kernel too."""
+    from repro_torch.kernels import ops
+
+    return ops.encode_bundle_dynamic(x_q, books["direction"], d, skip=_skip(cfg, point_offset))
 
 
 @register_topk("uhd_dynamic", "cuda")

@@ -78,10 +78,17 @@ def _centered(cfg: HDCConfig, hv: torch.Tensor) -> torch.Tensor:
     """
     if cfg.resolved_pack_center != "row":
         return hv
-    total = hv.to(torch.int64).sum(-1, keepdim=True).to(torch.float32)
-    inv_d = np.float32(1.0) / np.float32(hv.shape[-1])
-    inv = torch.full((), float(inv_d), dtype=torch.float32, device=hv.device)
-    return hv.to(torch.float32) - total * inv
+    return hv.to(torch.float32) - row_mean(hv.to(torch.int64).sum(-1, keepdim=True), hv.shape[-1])
+
+
+def row_mean(total: torch.Tensor, d: int) -> torch.Tensor:
+    """float32 row means from exact int64 row sums over D = `d`: the sum
+    converted to float32, times float32(1/d).  A D-sharded model sums its
+    shards' int64 row sums first, so its means equal the single-device
+    ones bit for bit."""
+    inv = torch.full((), float(np.float32(1.0) / np.float32(d)), dtype=torch.float32,
+                     device=total.device)
+    return total.to(torch.float32) * inv
 
 
 class HDCModel(nn.Module):
@@ -270,29 +277,71 @@ class HDCModel(nn.Module):
 
     # -- persistence -----------------------------------------------------
 
+    @property
+    def codebook_bytes(self) -> int:
+        return sum(v.numel() * v.element_size() for v in self.codebooks.values())
+
+    def _state(self) -> dict[str, Any]:
+        return {
+            "codebooks": self.codebooks,
+            "class_sums": self.class_sums,
+            "n_seen": nseen_array(self.n_seen),
+        }
+
     def save(self, path: str | Path, *, step: int = 0, keep_n: int = 3) -> None:
         """Atomic checkpoint of one step under `path`, in the JAX package's
         layout and leaf keys; the config rides in the manifest."""
         from repro_torch.checkpoint.manager import CheckpointManager
 
-        state = {
-            "codebooks": self.codebooks,
-            "class_sums": self.class_sums,
-            "n_seen": nseen_array(self.n_seen),
-        }
         CheckpointManager(path, keep_n=keep_n).save(
-            step, state, extra={"hdc_config": manifest_config(self.cfg)}
+            step, self._state(), extra={"hdc_config": manifest_config(self.cfg)}
+        )
+
+    def save_shard(
+        self, path: str | Path, *, step: int = 0, process_index: int, process_count: int,
+        keep_n: int = 3,
+    ) -> None:
+        """Write host `process_index`'s slice of a checkpoint of
+        `process_count` per-host D-shards, as the JAX package's
+        ``HDCModel.save_shard`` does: leaves whose trailing axis is D
+        (``class_sums``, the ``uhd`` table) go to shard files of this
+        host's D-slice; replicated leaves and the manifest are host 0's.
+        Host 0 writes first (it clears an aborted attempt's staging);
+        after every host, ``CheckpointManager(path).finalize_shards(step)``
+        publishes, and :meth:`load` stitches the slices back.  One process
+        may call it once per simulated host."""
+        from repro_torch.checkpoint.manager import CheckpointManager, _flatten, _unflatten
+
+        d = self.cfg.d
+        if d % process_count:
+            raise ValueError(f"d={d} does not divide over {process_count} checkpoint shards")
+        chunk = d // process_count
+        sl = slice(process_index * chunk, (process_index + 1) * chunk)
+        pairs = _flatten(self._state())
+        shard_axes = {k: leaf.ndim - 1 for k, leaf in pairs if leaf.ndim and leaf.shape[-1] == d}
+        local = _unflatten([(k, leaf[..., sl] if k in shard_axes else leaf) for k, leaf in pairs])
+        CheckpointManager(path, keep_n=keep_n).save_shard(
+            step, local, process_index=process_index, process_count=process_count,
+            shard_axes=shard_axes, extra={"hdc_config": manifest_config(self.cfg)},
         )
 
     @classmethod
     def load(
         cls, path: str | Path, *, step: int | None = None,
-        device: torch.device | str | None = None,
-    ) -> "HDCModel":
+        device: torch.device | str | None = None, mesh=None, rules=None,
+    ) -> "HDCModel | ShardedHDCModel":
         """Restore a checkpoint written by either package (latest step by
-        default) onto `device`.  The stored backend name is not kept: the
-        datapath follows `device` (see :func:`config_from_manifest`)."""
+        default; gathered or per-host shards) onto `device`, or with
+        `mesh` as a :class:`ShardedHDCModel` over it, each D-slice on its
+        shard's device (any shard count).  The stored backend name is not
+        kept: the datapath follows the device (see
+        :func:`config_from_manifest`)."""
         from repro_torch.checkpoint.manager import CheckpointManager
+
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("pass device or mesh, not both")
+            return cls.load(path, step=step, device="cpu").shard(mesh, rules=rules)
 
         mgr = CheckpointManager(path)
         if step is None:
@@ -317,6 +366,243 @@ class HDCModel(nn.Module):
         }
         sums = torch.from_numpy(np.ascontiguousarray(state["class_sums"], dtype=np.int32))
         return cls(cfg, books, sums, nseen_int(state["n_seen"]), device=device)
+
+    # -- distribution ----------------------------------------------------
+
+    def shardings(self, mesh, *, rules=None) -> dict[str, str | None]:
+        """Checkpoint leaf key -> the mesh axis that splits its trailing D,
+        or None (replicated).  D-wide leaves (``class_sums``, the ``uhd``
+        table) split over the "model" axis when it is present and divides
+        D; everything else replicates: the JAX package's
+        ``HDCModel.shardings`` as a plan instead of NamedShardings."""
+        from repro_torch.checkpoint.manager import _flatten
+        from repro_torch.distributed.sharding import model_axis_for
+
+        axis = model_axis_for(mesh, self.cfg.d, rules=rules)
+        return {
+            key: axis if axis and leaf.ndim and leaf.shape[-1] == self.cfg.d else None
+            for key, leaf in _flatten(self._state())
+        }
+
+    def shard(self, mesh, *, rules=None) -> "ShardedHDCModel":
+        """This model's state split per :meth:`shardings` over `mesh`."""
+        return ShardedHDCModel.from_model(self, mesh, rules=rules)
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """One D-slice of a sharded model: columns ``[offset, offset +
+    d_local)`` of the state, held on ``device`` (its home)."""
+
+    index: int
+    offset: int
+    device: torch.device
+    class_sums: torch.Tensor  # (C, d_local) int32 on device
+
+
+def _cell_device(mesh, axis: str | None, group: dict[str, int], j: int) -> torch.device:
+    """The mesh cell of batch shard `group` (positions on the batch axes)
+    and D-slice `j`; 0 on every other axis."""
+    return mesh.device_at({**group, axis: j} if axis else group)
+
+
+def _slice_to(t: torch.Tensor, sl: slice | None, device: torch.device) -> torch.Tensor:
+    """A fresh contiguous copy of ``t[..., sl]`` (all of `t` when `sl` is
+    None) on `device`: the kernels read table slices with 16-byte loads."""
+    src = t if sl is None else t[..., sl]
+    return torch.empty(src.shape, dtype=src.dtype, device=device).copy_(src)
+
+
+class ShardedHDCModel:
+    """An `HDCModel`'s state split along D over a mesh's "model" axis: the
+    port's counterpart of a JAX ``HDCModel`` placed by
+    ``shard(mesh)``.
+
+    Shard j's class sums live on its home device, the mesh cell at
+    position j of the model axis and 0 on every other axis.  Every cell
+    that computes for slice j (one per batch shard in training) holds
+    slice j of the D-wide codebooks and a copy of the replicated ones,
+    made contiguous once, here.  When the model axis is absent or does
+    not divide D, there is one shard holding all of D.  Class sums are
+    read back whole through :attr:`class_sums` or :meth:`gather`;
+    `evaluate`, `save` and `save_shard` run on the gathered model, while
+    :func:`partial_fit_sharded` and ``ShardedExecution`` run shard by
+    shard.
+    """
+
+    def __init__(self, cfg: HDCConfig, mesh, rules, books: dict, shards: list[Shard],
+                 n_seen: int):
+        self.cfg = cfg
+        self.mesh = mesh
+        self.rules = rules
+        self._books = books  # (shard index, device) -> codebook slice
+        self.shards = shards
+        self.n_seen = nseen_int(nseen_array(n_seen))
+
+    @classmethod
+    def from_model(cls, model: HDCModel, mesh, *, rules=None) -> "ShardedHDCModel":
+        from repro_torch.distributed.sharding import ShardingRules, model_axis_for
+
+        rules = rules or ShardingRules()
+        cfg = model.cfg
+        registry.resolve_backend(cfg.backend, mesh.platform, encoder=cfg.encoder)
+        axis = model_axis_for(mesh, cfg.d, rules=rules)
+        n = mesh.shape[axis] if axis else 1
+        width = cfg.d // n
+        split = model.shardings(mesh, rules=rules)
+        books, shards = {}, []
+        for j in range(n):
+            sl = slice(j * width, (j + 1) * width) if axis else None
+            for group in rules.batch_groups(mesh):
+                dev = _cell_device(mesh, axis, group, j)
+                if (j, dev) not in books:
+                    books[j, dev] = {
+                        k: _slice_to(v, sl if split[f"codebooks/{k}"] else None, dev)
+                        for k, v in model.codebooks.items()
+                    }
+            home = _cell_device(mesh, axis, {}, j)
+            shards.append(Shard(j, j * width, home, _slice_to(model.class_sums, sl, home)))
+        return cls(cfg, mesh, rules, books, shards, model.n_seen)
+
+    def _with_state(self, sums: list[torch.Tensor], n_seen: int) -> "ShardedHDCModel":
+        shards = [dataclasses.replace(sh, class_sums=t) for sh, t in zip(self.shards, sums)]
+        return ShardedHDCModel(self.cfg, self.mesh, self.rules, self._books, shards, n_seen)
+
+    # -- layout ----------------------------------------------------------
+
+    @property
+    def axis(self) -> str | None:
+        from repro_torch.distributed.sharding import model_axis_for
+
+        return model_axis_for(self.mesh, self.cfg.d, rules=self.rules)
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def d_local(self) -> int:
+        return self.cfg.d // self.n_shards
+
+    @property
+    def device(self) -> torch.device:
+        """The output device: where partials are summed and results land."""
+        return self.shards[0].device
+
+    def books(self, j: int, device: torch.device) -> dict[str, torch.Tensor]:
+        """Slice `j` of the codebooks as held on `device`."""
+        return self._books[j, device]
+
+    # -- state -----------------------------------------------------------
+
+    @property
+    def encoder(self) -> registry.EncoderBase:
+        return registry.get_encoder(self.cfg.encoder)
+
+    @property
+    def n_examples(self) -> int:
+        return self.n_seen
+
+    @property
+    def class_sums(self) -> torch.Tensor:
+        """The (C, D) class sums, gathered on the output device."""
+        return torch.cat([sh.class_sums.to(self.device) for sh in self.shards], dim=1)
+
+    @property
+    def codebooks(self) -> dict[str, torch.Tensor]:
+        """The whole codebooks, gathered on the output device."""
+        specs = self.encoder.codebook_specs(self.cfg)
+        homes = [self.books(sh.index, sh.device) for sh in self.shards]
+        return {
+            k: torch.cat([b[k].to(self.device) for b in homes], dim=-1)
+            if self.axis and shape[-1] == self.cfg.d else homes[0][k]
+            for k, (shape, _) in specs.items()
+        }
+
+    @property
+    def codebook_bytes(self) -> int:
+        specs = self.encoder.codebook_specs(self.cfg)
+        return sum(int(np.prod(shape)) * np.dtype(dt).itemsize for shape, dt in specs.values())
+
+    def gather(self, device: torch.device | str | None = None) -> HDCModel:
+        """The whole model on `device` (default: the output device)."""
+        return HDCModel(self.cfg, self.codebooks, self.class_sums, self.n_seen,
+                        device=self.device if device is None else device)
+
+    def shard(self, mesh, *, rules=None) -> "ShardedHDCModel":
+        """This model over `mesh` (itself when it is already there)."""
+        if mesh == self.mesh and (rules or self.rules) == self.rules:
+            return self
+        return self.gather().shard(mesh, rules=rules)
+
+    # -- the gathered entry points ---------------------------------------
+
+    def evaluate(self, images, labels, batch_size: int = 1024) -> float:
+        return self.gather().evaluate(images, labels, batch_size)
+
+    def save(self, path: str | Path, *, step: int = 0, keep_n: int = 3) -> None:
+        self.gather().save(path, step=step, keep_n=keep_n)
+
+    def save_shard(self, path: str | Path, *, step: int = 0, process_index: int,
+                   process_count: int, keep_n: int = 3) -> None:
+        self.gather().save_shard(path, step=step, process_index=process_index,
+                                 process_count=process_count, keep_n=keep_n)
+
+
+def _host_tensor(a) -> torch.Tensor:
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+
+
+def partial_fit_sharded(model, images, labels, *, mesh, rules=None) -> ShardedHDCModel:
+    """The multi-device `partial_fit` (the JAX package's shard_map step).
+
+    The batch splits over the mesh's batch axes (``pod``, ``data``) into
+    equal row blocks; every (batch shard, D-slice) cell computes the
+    (C, d_local) class sums of its rows through the fused ``fit_bundle``
+    datapath on its own device, a ``uhd_dynamic`` cell generating only
+    the Sobol points of its slice (``point_offset``); the partials of a
+    slice are summed on its home device (the JAX package's one psum) and
+    added to the slice's class sums.  Integer arithmetic throughout, so
+    the result equals single-device ``partial_fit`` on the whole batch
+    bit for bit.  `model` is an `HDCModel` or a `ShardedHDCModel`; it is
+    placed on `mesh` first when it is not there.  Returns a new model.
+    """
+    from repro_torch.distributed.sharding import ShardingRules
+
+    rules = rules or ShardingRules()
+    model = model.shard(mesh, rules=rules)
+    cfg, enc = model.cfg, model.encoder
+    images, labels = _host_tensor(images), _host_tensor(labels)
+    encoding.validate_labels(labels, cfg.n_classes)
+    groups = rules.batch_groups(mesh)
+    n = int(labels.shape[0])
+    if n % len(groups):
+        raise ValueError(
+            f"global batch {n} must divide the {len(groups)}-way batch mesh axes "
+            f"{rules.batch_axes(mesh)}"
+        )
+    per, axis = n // len(groups), model.axis
+    cells: dict = {}  # (batch shard, device) -> quantized rows and labels there
+    sums = []
+    for sh in model.shards:
+        total = None
+        for g, group in enumerate(groups):
+            dev = _cell_device(mesh, axis, group, sh.index)
+            if (g, dev) not in cells:
+                rows = slice(g * per, (g + 1) * per)
+                x = images[rows].to(dev)
+                cells[g, dev] = (
+                    encoding.quantize_images(x, cfg.levels, cfg.max_intensity),
+                    labels[rows].to(dev, torch.int32),
+                )
+            x_q, y = cells[g, dev]
+            part = enc.fit_bundle(
+                cfg, model.books(sh.index, dev), x_q, y, backend=cfg.backend,
+                d=model.d_local, point_offset=sh.offset if enc.dynamic_generator else None,
+            ).to(sh.device)
+            total = part if total is None else total + part
+        sums.append(sh.class_sums + total)
+    return model._with_state(sums, model.n_seen + n)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 The torch counterpart of ``repro.core.registry``.  An encoder registers
 its codebook layout and a table of datapaths ("backends"); a backend
-may attach a fused training step (``register_fit_bundle``) and a packed
+may attach a fused training step (``register_fit_bundle``), a D-slice
+encode for sharded serving (``register_encode_slice``) and a packed
 top-k search (``register_topk``).  :func:`resolve_backend` maps a
 requested name, or ``"auto"``, plus the platform of the model's tensors
 (``"cuda"`` or ``"cpu"``) to a concrete backend; :func:`resolve_impl`
@@ -28,8 +29,10 @@ if TYPE_CHECKING:
 
 #: (cfg, codebooks, x_q) -> (B, D) int32 hypervectors
 BackendFn = Callable[..., torch.Tensor]
-#: (cfg, codebooks, x_q, labels) -> (C, D) int32 class sums
+#: (cfg, codebooks, x_q, labels, *, d, point_offset) -> (C, d) int32 class sums
 FitBundleFn = Callable[..., torch.Tensor]
+#: (cfg, codebooks, x_q, *, d, point_offset) -> (B, d) int32 hypervector columns
+EncodeSliceFn = Callable[..., torch.Tensor]
 #: (q_words, c_words, d, k) -> ((B, k) int32 indices, (B, k) int32 distances)
 TopkFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 AvailabilityProbe = Callable[[str], bool]  # platform -> usable?
@@ -44,6 +47,7 @@ class BackendSpec:
     fn: BackendFn
     available: AvailabilityProbe
     fit_bundle: FitBundleFn | None = None
+    encode_slice: EncodeSliceFn | None = None
     topk: TopkFn | None = None
 
 
@@ -72,6 +76,11 @@ class EncoderBase:
     auto_order: dict[str, tuple[str, ...]] = {"default": ("ref",)}
     default_class_binarize: str = "sign"
     default_pack_center: str = "none"
+    #: True when the codebook generates the D thresholds instead of
+    #: storing them: a D-shard then hands its backend ``point_offset``,
+    #: the start of its slice in the generated stream; a table encoder's
+    #: shard gets its codebook pre-sliced instead.
+    dynamic_generator: bool = False
 
     def build_codebooks(self, cfg: "HDCConfig") -> dict[str, torch.Tensor]:
         raise NotImplementedError
@@ -87,11 +96,40 @@ class EncoderBase:
         """Quantized features (B, H) -> non-binary hypervectors (B, D)."""
         return self._spec(backend, platform_of(x_q.device)).fn(cfg, codebooks, x_q)
 
-    def fit_bundle(self, cfg, codebooks, x_q, labels, *, backend: str = "auto") -> torch.Tensor:
-        """Quantized features + labels -> (C, D) int32 class sums through
+    def fit_bundle(
+        self, cfg, codebooks, x_q, labels, *, backend: str = "auto", d: int | None = None,
+        point_offset: int | None = None,
+    ) -> torch.Tensor:
+        """Quantized features + labels -> (C, d) int32 class sums through
         the backend's fused training step (every backend of the port
-        registers one)."""
-        return self._spec(backend, platform_of(x_q.device)).fit_bundle(cfg, codebooks, x_q, labels)
+        registers one).  ``d`` (default ``cfg.d``) is the local width and
+        ``point_offset`` a generator shard's start in the Sobol stream:
+        the D-sharding hooks (a table shard's codebook is pre-sliced)."""
+        spec = self._spec(backend, platform_of(x_q.device))
+        return spec.fit_bundle(
+            cfg, codebooks, x_q, labels, d=cfg.d if d is None else d, point_offset=point_offset
+        )
+
+    def encode_slice(
+        self, cfg, codebooks, x_q, *, backend: str = "auto", d: int | None = None,
+        point_offset: int | None = None,
+    ) -> torch.Tensor:
+        """Quantized features (B, H) -> hypervector D-slice (B, d), equal
+        to columns ``[point_offset, point_offset + d)`` of the full encode.
+        A table shard's codebook is pre-sliced, so its plain encode gives
+        the slice; a generator shard (``point_offset`` given) needs the
+        backend's registered ``encode_slice``."""
+        spec = self._spec(backend, platform_of(x_q.device))
+        if spec.encode_slice is not None:
+            return spec.encode_slice(
+                cfg, codebooks, x_q, d=cfg.d if d is None else d, point_offset=point_offset
+            )
+        if point_offset is not None:
+            raise BackendUnavailableError(
+                f"backend {spec.name!r} of encoder {self.name!r} registers no "
+                "encode_slice datapath; sharded generator D-slices (point_offset) need one"
+            )
+        return spec.fn(cfg, codebooks, x_q)
 
     def topk(self, q_words, c_words, d: int, k: int, *, backend: str = "auto"):
         """Packed top-k retrieval, the single dispatch point of the
@@ -150,6 +188,13 @@ def _attach(kind: str, encoder: str, backend: str):
 def register_fit_bundle(encoder: str, backend: str) -> Callable[[FitBundleFn], FitBundleFn]:
     """Function decorator: attach a fused training step to a backend."""
     return _attach("fit_bundle", encoder, backend)
+
+
+def register_encode_slice(
+    encoder: str, backend: str
+) -> Callable[[EncodeSliceFn], EncodeSliceFn]:
+    """Function decorator: attach a D-slice encode to a backend."""
+    return _attach("encode_slice", encoder, backend)
 
 
 def register_topk(encoder: str, backend: str) -> Callable[[TopkFn], TopkFn]:

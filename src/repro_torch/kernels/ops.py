@@ -7,9 +7,10 @@ kernel (built on first use by :mod:`repro_torch.kernels._build`) or the
 call raises.  There is no fallback from one to the other.
 
 ``LAUNCHES`` counts, per wrapper, the calls that launched its kernel;
-``chip_smoke.py`` zeroes it before driving the serving path and reads
-it after, to show that the path ran through the kernels.  One call of
-``hamming_topk`` is one scan launch plus its merge passes, counted as one.
+``chip_smoke.py`` zeroes it before driving each path and reads it
+after, to show that the path ran through the kernels.  One call of
+``hamming_topk`` is one scan launch plus its merge passes, and one call
+of ``hamming_packed`` one launch per 1,048,560 rows; each counts as one.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ LAUNCHES: dict[str, int] = {
     "encode_bundle_dynamic": 0,
     "fit_bundle_dynamic": 0,
     "hamming_topk": 0,
+    "hamming_packed": 0,
 }
 
 #: grid-dimension limits of the kernels (gridDim.y <= 65535 rows of blocks)
@@ -89,6 +91,17 @@ def _table_args(x: torch.Tensor, sobol_q: torch.Tensor):
     if sobol_q.dtype not in _TABLE_DTYPES:
         raise ValueError(f"sobol_q dtype {sobol_q.dtype} not in {_TABLE_DTYPES}")
     return sobol_q.contiguous(), sobol_q.element_size()
+
+
+def _packed_args(q_words: torch.Tensor, c_words: torch.Tensor):
+    if q_words.dtype != torch.int32 or c_words.dtype != torch.int32:
+        raise ValueError("packed words must be int32 bit patterns")
+    if q_words.dim() != 2 or c_words.dim() != 2 or q_words.shape[1] != c_words.shape[1]:
+        raise ValueError(
+            f"expected (B, W) and (C, W) words, got {tuple(q_words.shape)} and "
+            f"{tuple(c_words.shape)}"
+        )
+    return q_words.contiguous(), c_words.contiguous()
 
 
 def encode_bundle(x_q: torch.Tensor, sobol_q: torch.Tensor) -> torch.Tensor:
@@ -205,14 +218,7 @@ def hamming_topk(
         raise ValueError(f"k must be in [1, {c}], got {k}")
     if _on_cpu(q_words, c_words):
         return ref.hamming_topk(q_words, c_words, d, k)
-    if q_words.dtype != torch.int32 or c_words.dtype != torch.int32:
-        raise ValueError("packed words must be int32 bit patterns")
-    if q_words.dim() != 2 or c_words.dim() != 2 or q_words.shape[1] != c_words.shape[1]:
-        raise ValueError(
-            f"expected (B, W) and (C, W) words, got {tuple(q_words.shape)} and "
-            f"{tuple(c_words.shape)}"
-        )
-    q, rows = q_words.contiguous(), c_words.contiguous()
+    q, rows = _packed_args(q_words, c_words)
     b, w = q.shape
     dev = q.device
     idx = torch.empty((b, k), dtype=torch.int32, device=dev)
@@ -230,3 +236,24 @@ def hamming_topk(
     _check(err, "hamming_topk")
     LAUNCHES["hamming_topk"] += 1
     return idx, dist
+
+
+def hamming_packed(q_words: torch.Tensor, c_words: torch.Tensor, d: int) -> torch.Tensor:
+    """Packed ±1 similarity, (B, W), (C, W) int32 words -> (B, C) int32
+    scores d - 2 * popcount(q ^ c); ``d`` is the length of the packed
+    sign vectors (a shard's d_local under D-sharded serving).
+    Semantics: ``ref.hamming_packed``."""
+    if _on_cpu(q_words, c_words):
+        return ref.hamming_packed(q_words, c_words, d)
+    q, rows = _packed_args(q_words, c_words)
+    (b, w), c = q.shape, rows.shape[0]
+    out = torch.empty((b, c), dtype=torch.int32, device=q.device)
+    if b == 0 or c == 0:
+        return out
+    with torch.cuda.device(q.device):
+        err = _build.library().uhd_hamming_packed(
+            _ptr(q), _ptr(rows), b, c, w, int(d), _ptr(out), _stream(q.device)
+        )
+    _check(err, "hamming_packed")
+    LAUNCHES["hamming_packed"] += 1
+    return out

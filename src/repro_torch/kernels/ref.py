@@ -169,6 +169,22 @@ def hamming_distances(q_words: torch.Tensor, c_words: torch.Tensor) -> torch.Ten
     return unary.popcount_words(x).sum(-1).to(torch.int32)
 
 
+def hamming_packed(
+    q_words: torch.Tensor, c_words: torch.Tensor, d: int, *, block_c: int = 4096
+) -> torch.Tensor:
+    """Packed ±1 similarity, (B, W) x (C, W) words -> (B, C) int32 scores
+    d - 2 * popcount(q ^ c) (the ±1 dot product of two sign vectors of
+    length d; pad bits are zero in both operands and cancel).  Rows are
+    tiled, so the transient stays (B, block_c, W)."""
+    tiles = [
+        d - 2 * hamming_distances(q_words, c_words[c0 : c0 + block_c])
+        for c0 in range(0, c_words.shape[0], block_c)
+    ]
+    if not tiles:
+        return torch.zeros((q_words.shape[0], 0), dtype=torch.int32, device=q_words.device)
+    return torch.cat(tiles, dim=1).to(torch.int32)
+
+
 def hamming_topk_oracle(
     q_words: torch.Tensor, c_words: torch.Tensor, d: int, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,15 +1,19 @@
-"""The paper's system end to end on one device: uHD single-pass training.
+"""The paper's system end to end: uHD single-pass training.
 
     PYTHONPATH=src python -m repro_torch.launch.train_hdc                # on the card
     PYTHONPATH=src python -m repro_torch.launch.train_hdc --device cpu --d 1024
+    PYTHONPATH=src python -m repro_torch.launch.train_hdc --shard-map --ckpt-shards 4 \
+        --save-dir /tmp/hdc
 
-The torch counterpart of ``repro.launch.train_hdc`` (its single-device
-path, with its defaults): create -> fit_batches (streamed, one fused
-training step a batch) -> evaluate (cosine ``predict``) -> with
-``--save-dir``, save, load and check the round trip.  The device is the
-only datapath switch: on the card the ``uhd`` encoder runs the CUDA
-kernels ``fit_bundle`` and ``encode_bundle``, on the CPU their plain
-versions.
+The torch counterpart of ``repro.launch.train_hdc``, with its defaults:
+create -> fit_batches (streamed, one fused training step a batch), or
+with ``--shard-map`` ``partial_fit_sharded`` a batch over ``mesh_for()``
+(every visible card, or the CPU) -> evaluate (cosine ``predict``) ->
+with ``--save-dir``, save (with ``--ckpt-shards N``, as N per-host
+D-shards written from this process, then published), load and check
+the round trip.  The device is the only datapath switch: on the card
+the ``uhd`` encoder runs the CUDA kernels ``fit_bundle`` and
+``encode_bundle``, on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -20,14 +24,17 @@ import time
 
 import torch
 
-from repro_torch.core import HDCConfig, HDCModel
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.core import HDCConfig, HDCModel, ShardedHDCModel, partial_fit_sharded
 from repro_torch.core.hdc_model import resolve_device
 from repro_torch.data import load_dataset
+from repro_torch.distributed.sharding import set_current_mesh
+from repro_torch.launch.mesh import describe, mesh_for
 
 
 @dataclasses.dataclass
 class TrainResult:
-    model: HDCModel
+    model: HDCModel | ShardedHDCModel
     accuracy: float
     fit_s: float  # fit_batches wall seconds, synchronised
     eval_s: float  # evaluate wall seconds
@@ -58,21 +65,39 @@ def train(args) -> TrainResult:
 
     fresh = HDCModel.create(cfg, device=device)
     t0 = time.perf_counter()
-    model = fresh.fit_batches(batches())
+    if args.shard_map:
+        mesh = mesh_for(devices=None if device.type == "cuda" else [device])
+        set_current_mesh(mesh)
+        model = fresh.shard(mesh)
+        for images, labels in batches():
+            model = partial_fit_sharded(model, images, labels, mesh=mesh)
+        mode = f"shard_map {describe(mesh)}"
+    else:
+        model = fresh.fit_batches(batches())
+        mode = "single device"
     _sync(device)
     t1 = time.perf_counter()
     acc = model.evaluate(ds.test_images, ds.test_labels)
     t2 = time.perf_counter()
-    print(f"{args.encoder}  D={args.d} device={device.type}: accuracy {acc:.4f}  "
+    print(f"{args.encoder}  D={args.d} device={device.type} [{mode}]: accuracy {acc:.4f}  "
           f"({model.n_examples} images, single pass, fit {t1 - t0:.3f}s, "
           f"evaluate {t2 - t1:.3f}s)")
 
     ok = None
     if args.save_dir:
-        model.save(args.save_dir, step=0)
+        if args.ckpt_shards > 1:
+            for pi in range(args.ckpt_shards):
+                model.save_shard(args.save_dir, step=0, process_index=pi,
+                                 process_count=args.ckpt_shards)
+            CheckpointManager(args.save_dir).finalize_shards(0)
+        else:
+            model.save(args.save_dir, step=0)
         restored = HDCModel.load(args.save_dir, device=device)
-        ok = restored.cfg == model.cfg and torch.equal(restored.class_sums, model.class_sums)
-        print(f"checkpointed to {args.save_dir} (round-trip ok: {ok})")
+        ok = restored.cfg == model.cfg and torch.equal(
+            restored.class_sums, model.class_sums.to(device)
+        )
+        shard_note = f", {args.ckpt_shards} host shards" if args.ckpt_shards > 1 else ""
+        print(f"checkpointed to {args.save_dir} (round-trip ok: {ok}{shard_note})")
     return TrainResult(model, acc, t1 - t0, t2 - t1, ok)
 
 
@@ -85,7 +110,17 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-test", type=int, default=1024)
     ap.add_argument("--encoder", default="uhd", help="registered encoder (uhd | uhd_dynamic)")
     ap.add_argument("--batch-size", type=int, default=2048)
+    ap.add_argument(
+        "--shard-map", action="store_true",
+        help="train through partial_fit_sharded over mesh_for() (batch shards summed, "
+             "per-D-slice generation); bit-identical class sums",
+    )
     ap.add_argument("--save-dir", default=None, help="checkpoint the trained HDCModel here")
+    ap.add_argument(
+        "--ckpt-shards", type=int, default=0,
+        help="with --save-dir: write the checkpoint as N per-host D-shards "
+             "(simulated hosts in this process) and verify the stitched restore",
+    )
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the kernels run on cuda, the plain versions on cpu")
     return ap

@@ -1,10 +1,12 @@
 """`ServingEngine`: the pack-once packed-Hamming inference unit.
 
 The torch counterpart of ``repro.serving.engine``.  At load the engine
-restores an `HDCModel`, places it on its device, and binarizes and
-packs the (C, D) class sums into words once; after that every request
-batch is encode -> pack -> XOR + popcount -> nearest class.  Engines
-are immutable: a reload builds a new engine from a newer step.
+restores an `HDCModel`, places it per its execution backend (one
+device, or D-sharded over a mesh: :mod:`repro_torch.serving.execution`),
+and binarizes and packs the (C, D) class sums into words once, in the
+backend's layout; after that every request batch is encode -> pack ->
+XOR + popcount -> nearest class.  Engines are immutable: a reload builds
+a new engine from a newer step.
 """
 
 from __future__ import annotations
@@ -15,13 +17,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.hdc_model import HDCModel
-from repro_torch.serving.execution import DeviceExecution, resolve_impl
+from repro_torch.serving.execution import DeviceExecution, ShardedExecution, resolve_impl
 
 __all__ = ["ServingEngine", "resolve_impl"]
 
 
 class ServingEngine:
-    """One loaded model, packed for inference, on one device."""
+    """One loaded model, packed for inference, on one device or a mesh."""
 
     def __init__(
         self,
@@ -30,7 +32,7 @@ class ServingEngine:
         batch_size: int = 64,
         step: int | None = None,
         source: str | Path | None = None,
-        execution: DeviceExecution | None = None,
+        execution: DeviceExecution | ShardedExecution | None = None,
         device: torch.device | str | None = None,
     ):
         self.execution = execution or DeviceExecution(device=device)
@@ -49,10 +51,11 @@ class ServingEngine:
         *,
         step: int | None = None,
         batch_size: int = 64,
-        execution: DeviceExecution | None = None,
+        execution: DeviceExecution | ShardedExecution | None = None,
         device: torch.device | str | None = None,
     ) -> "ServingEngine":
-        """Load a checkpointed `HDCModel` (latest step by default) and pack it."""
+        """Load a checkpointed `HDCModel` (latest step by default; gathered
+        or per-host shards), place it per `execution` and pack it."""
         from repro_torch.checkpoint.manager import CheckpointManager
 
         execution = execution or DeviceExecution(device=device)
@@ -60,7 +63,7 @@ class ServingEngine:
             step = CheckpointManager(path).latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoints under {path}")
-        model = HDCModel.load(path, step=step, device=execution.device)
+        model = execution.load(path, step)
         return cls(model, batch_size=batch_size, step=step, source=path, execution=execution)
 
     # -- inference --------------------------------------------------------
@@ -90,6 +93,8 @@ class ServingEngine:
 
     def describe(self) -> dict:
         cfg = self.model.cfg
+        words = self.class_words
+        words = words if isinstance(words, list) else [words]
         return {
             "encoder": cfg.encoder,
             "d": cfg.d,
@@ -101,8 +106,6 @@ class ServingEngine:
             "step": self.step,
             "source": str(self.source) if self.source else None,
             "n_seen": self.model.n_examples,
-            "packed_bytes": int(self.class_words.numel() * 4),
-            "codebook_bytes": int(
-                sum(v.numel() * v.element_size() for v in self.model.codebooks.values())
-            ),
+            "packed_bytes": 4 * sum(w.numel() for w in words),
+            "codebook_bytes": int(self.model.codebook_bytes),
         }

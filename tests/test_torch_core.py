@@ -233,6 +233,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch, repro_torch.launch.serve_hdc, repro_torch.serving.engine\n"
         "import repro_torch.convert, repro_torch.kernels.ops, repro_torch.launch.train_hdc\n"
         "import repro_torch.core.item_memory, repro_torch.core.encoders\n"
+        "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
+        "import repro_torch.serving.execution, repro_torch.checkpoint.manager\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
