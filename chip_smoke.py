@@ -13,9 +13,10 @@ Phases, each printed as one JSON object per line:
    main paths' shapes and at ragged ones, for exact equality (the datapath
    is integer: the tolerance is 0), then timed with CUDA events (``ms``, a
    call's wall share included) and by ``torch.profiler`` (``device_ms``, the
-   device's share alone); for the table encode and for ``hamming_packed``,
-   one ``torch._int_mm`` call computing the same result is timed beside it
-   as the library yardstick (the port never calls it);
+   device's share alone); for the table encode, ``hamming_packed`` and
+   ``encode_unary_mxu``, one ``torch._int_mm`` call computing the same result,
+   and for ``bundle_binarize`` one int32 ``index_add_``, is timed beside it as
+   the library yardstick (the port never calls them);
 4. slice: ``repro_torch.launch.serve_hdc``'s smoke at the JAX smoke's
    configuration (synth_mnist, d=8192, levels=16, 1024 training images, 256
    requests in batches of 64), once with ``uhd_dynamic`` and once with ``uhd``,
@@ -43,7 +44,13 @@ Phases, each printed as one JSON object per line:
    ``ShardedExecution`` on 1 and 4 shards, against the single-device search;
 9. train_shard_map: ``train_hdc --shard-map --ckpt-shards 4`` at its defaults,
    its class sums against the JAX package's checksum, and the round trip;
-10. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
+10. slice_baseline: the serving smoke with the paper's baseline encoder, its
+   class sums and served accuracy against the JAX package's (kernels 7, 8, 5);
+11. train_baseline: ``train_hdc --encoder baseline --compare-baseline
+   --baseline-iters 5`` at the launcher's defaults, each seed's class sums
+   against the JAX package's checksum and its labels against JAX's, and the
+   checkpoint round trip;
+12. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
    encoder, on one device and on 4 shards: device time per batch by kernel,
    and the device's idle share.
 
@@ -115,12 +122,147 @@ JAX_TRAIN_LABELS = (
     "5293901159051643097773730819167985141946312044333748570673799600"
 )
 
+# The serving smoke with encoder='baseline' (the JAX package on the CPU): the class
+# sums' sha256 at both steps and the served accuracy, from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import hashlib,numpy as np,jax.numpy as jnp; \
+#   from repro.core import HDCConfig,HDCModel; from repro.core.hdc_model import predict_packed; \
+#   from repro.data import load_dataset; ds=load_dataset('synth_mnist',n_train=1024,n_test=256); \
+#   c=HDCConfig(n_features=784,n_classes=10,d=8192,levels=16,encoder='baseline'); \
+#   m0=HDCModel.create(c).fit(ds.train_images[:512],ds.train_labels[:512]); \
+#   m1=m0.partial_fit(ds.train_images[512:],ds.train_labels[512:]); \
+#   [print(hashlib.sha256(np.asarray(m.class_sums).astype('<i4').tobytes()).hexdigest()) for m in (m0,m1)]; \
+#   p=np.concatenate([np.asarray(predict_packed(m,jnp.asarray(x),m.pack())) for m,x in \
+#   ((m0,ds.test_images[:128]),(m1,ds.test_images[128:]))]); print((p==ds.test_labels).mean())"
+# (`python -m repro.launch.serve_hdc --smoke --encoder baseline --d 8192 --batch 64` prints
+# the same accuracy, 0.8633.)
+JAX_BASELINE_SHA256 = (
+    "9042c4c3c54926fc05a71aa95b13a4f85002822d40d9ae05499c8c5ad57fdbba",  # step 0
+    "ae003c86330dcaa941561a30aa2f11f1055f4b37d62520f4703f2f7398d74f34",  # step 1
+)
+JAX_BASELINE_SERVED_ACCURACY = 0.86328125
+
+# `python -m repro.launch.train_hdc --encoder baseline --compare-baseline` at its defaults
+# (the JAX package on the CPU): for each seed i of baseline_iterative_search (seed 0 is
+# also the --encoder baseline model), the class sums' sha256, the accuracy and the 1024
+# predicted labels, from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import hashlib,numpy as np,jax.numpy as jnp; \
+#   from repro.core import HDCConfig,HDCModel; from repro.data import load_dataset; \
+#   ds=load_dataset('synth_mnist',n_train=4096,n_test=1024); \
+#   ms=[HDCModel.create(HDCConfig(n_features=784,n_classes=10,encoder='baseline',seed=s)) \
+#   .fit_batches((ds.train_images[i:i+2048],ds.train_labels[i:i+2048]) for i in (0,2048)) \
+#   for s in range(5)]; ps=[np.asarray(m.predict(jnp.asarray(ds.test_images))) for m in ms]; \
+#   [print(hashlib.sha256(np.asarray(m.class_sums).astype('<i4').tobytes()).hexdigest(), \
+#   (p==ds.test_labels).mean(), ''.join(map(str,p.tolist()))) for m,p in zip(ms,ps)]"
+JAX_BASELINE_TRAIN_SHA256 = (
+    "944e627dfff1252464deb4bffb5fd194a09a4e7d68c799871787e820c14d29c9",
+    "c8f7880dc7604a9369bf62503c5a4f260662f7222960d13c4739acaba1ebb6e6",
+    "128150d2b2cfbb21cd17f9717be2e74e5d39379dfe19310f4005ee6220d5268d",
+    "d7d1a94430c60c8297beb62321e6af8e3bc0569af654c5ac85fcf56fe3722ace",
+    "1de8c531cd581ae93be6fca2678929a5c67662947fb0562a6c576b7c27882abe",
+)
+JAX_BASELINE_TRAIN_ACCURACY = (0.8740234375, 0.8740234375, 0.8798828125, 0.880859375, 0.875)
+JAX_BASELINE_TRAIN_LABELS = {
+    0: (
+        "4782626422573753133133200319963696305856444042547861893528263598"
+        "4717099993809375441185567780495680416092177175018916069499938373"
+        "4167869511135721108798152388812706169060387769113551350028340802"
+        "2443429832851767044503898197241776720251632630135665289046496407"
+        "1139363659435031182512564013589853969738082857517786903792233454"
+        "7471904655547088297884031761340366436264858578001587787653452079"
+        "9744981950161183512915580346733881420701818375710121181070943123"
+        "4128394971996995978118743210275575117972262130680122113895469376"
+        "0511732698973711649916865967693134183058445247718336638076686735"
+        "7746931472112646748518027119169400819029391922768936371495294415"
+        "9751568579454835438833063808595283660048152868534027201253602996"
+        "7281912365559738386343154739316150239767334840848429745469610915"
+        "1250658777015536244457256108371428350157529352014099228354291679"
+        "7168413052182830142093193398282455016901793131070924274896050635"
+        "4074217129592655985550445757414066571557931961249207981463563502"
+        "5296901351851643097773730819167985141946312044333748570673799600"
+    ),
+    1: (
+        "4782626423573653133133300319763696305856444042547863896528263598"
+        "4717099992809375441175567780495680416092177175018916069499938373"
+        "4167861511125721108798152388812609169060387769113551350027340802"
+        "2446429833851767044503817167241776720351632630135665389046416407"
+        "1169363659435031184522564013589753169738022857517786903792233454"
+        "7471904655567088297884031761340366436264858578001587787653452079"
+        "9745981950161183512915580346733881420701818375710121181070943123"
+        "4128394971996995978118743210275575117972262130680122113895469376"
+        "0521732698973711641916865967693134183058445247718334638076696725"
+        "7746931472112646748518027119169400819029391922768926371495394415"
+        "9759568579454835438833063808595283660048252868534037201253602996"
+        "7281912365559738386343154739316150239767334840848421745469610915"
+        "1250658777015536244457256108371428350157529352014099228354291679"
+        "7168413052182820142093193398282455016903793131070924274896050635"
+        "4074217129592655985550445757414066571557921961249207181463563502"
+        "5293901359851643097773730819167985141946392044333748570673799600"
+    ),
+    2: (
+        "4772626423573653133133300319973696305876444042547863896528263598"
+        "4717099992809375441185567780495680416092177175018916069499938373"
+        "4167861511135721108798152388812709169060387769113551350028340802"
+        "2446429832851767044503818197241776720251632630135665389046496407"
+        "1199363659435031183522564013589853969738032857517786903792233454"
+        "7471904655547088297884031761340366436264858578001587787653452079"
+        "9745981150161183512915580746733881420701818345710121181070963123"
+        "4128394971996995978118743210275575117972262130680123113895469376"
+        "0521732698973711641916865977693134183058445247718334738076686725"
+        "7746931472112646748518027119169400819029391922768926371495394415"
+        "9759568579454835438833063808595283660048152868534037201253602993"
+        "7281112365559738386343154739316150239767334840848429745469610915"
+        "1250658777015536244457256108371428350157529352014099328354291679"
+        "7168412052182820142093193398382455016903793131070924274896050635"
+        "4074217139592655985550445757416066571557931961249207981463563502"
+        "5293901359851643097773730819167985141946392044333748570673799600"
+    ),
+    3: (
+        "4782626423573653133133200319763696305856444042547863893528263598"
+        "4717099992809375441185567780495680416093177175018916069499938373"
+        "4167861511135721108798152388812609169060387769113551650025340802"
+        "2446429833851767044503817197241776720351632630135665389046496407"
+        "1199363659435031182522564013589553169738032857517786903792233454"
+        "7471904655547088297884031761340366436264858578001587787653452079"
+        "9744981950161183512915580346733881420701818345710121181070943123"
+        "4128394971996995978118743210275575117972262130680122113895469376"
+        "0521732698973711649916865967690134183058445247718336738076686725"
+        "7746931472112646748518027119169400819021391922768936371495394415"
+        "9759568579454835468833063808595283660048152868534027301253602996"
+        "7281912365559738386343154739316150239767334840848429745469610915"
+        "1250658777015536244457256108371428350157529352014099328354291679"
+        "7168413052182820142092193398382455016901793131070924274896050635"
+        "4074217129592655985550445757614066571557931961249207981463563502"
+        "5296901359851643097773730819167985141946312044333748570673799600"
+    ),
+    4: (
+        "4782626423573753133133200319963696305856444042547863893528263598"
+        "4717099992809375441185567780495680416092177175018916069499938373"
+        "4167861511135721108798152388812609169060387769113551350025340802"
+        "2446429833851767044503815107241776720251632630135665389046496407"
+        "1199363659435031184522564013589853169738032857517786903792233454"
+        "7471904655547088297884031761340366436264858578001587787653452079"
+        "9745981950161183512915580346733881420701818375710121281070943123"
+        "4928394971996995978118743210275577117972262130680123113895469376"
+        "0521732698973711649116865977693134183058445247718334638076686725"
+        "7746931472112646748518027119169400819029391922768926371495394415"
+        "9759568579454835468833063808595283660048152868534037201253602996"
+        "7281112365559738386343154739316150239767334840848429745469610915"
+        "1250658777015536244457256108371428350157529352014099228354291679"
+        "7168413052182820142093193398382455016903793131070924274896050635"
+        "4074217129592655985550445757416066571557921961249207181463563502"
+        "5296901359051643097773730819167985141946392044333748570653799600"
+    ),
+}
+
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).  Compare-count
 # and popcount work runs on the CUDA cores: 64 int32 lanes an SM against 128 fp32
 # lanes and no fused multiply-add, so the int32 issue rate is a quarter of the
 # 67 TFLOP/s fp32 rate.  A popcount is counted as one op at that rate.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+# The int8 tensor cores' dense rate (the same data sheet), for the binary matmul of
+# encode_unary_mxu: a multiply and an add of the int8 product count as 2 ops.
+INT8_TC_OPS_PER_S = 1979e12
 
 KERNELS = {
     "encode_bundle": dict(
@@ -147,6 +289,14 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/hamming_packed.cu",
         replaces="src/repro/kernels/hamming_packed.py:34",
     ),
+    "encode_unary_mxu": dict(
+        source="src/repro_torch/kernels/csrc/encode_unary_mxu.cu",
+        replaces="src/repro/kernels/encode_unary_mxu.py:43",
+    ),
+    "bundle_binarize": dict(
+        source="src/repro_torch/kernels/csrc/bundle_binarize.cu",
+        replaces="src/repro/kernels/bundle_binarize.py:45",
+    ),
 }
 # the shape each kernel's entry of the kernels line reports (others follow it)
 MAIN_SHAPE = {
@@ -156,6 +306,8 @@ MAIN_SHAPE = {
     "fit_bundle_dynamic": {"B": 512, "H": 784, "D": 8192, "C": 10, "skip": 1},
     "hamming_topk": {"B": 64, "C": 10, "D": 8192, "k": 1},
     "hamming_packed": {"B": 64, "C": 10, "D": 8192},
+    "encode_unary_mxu": {"B": 64, "K": 13344, "D": 8192, "operands": "baseline"},
+    "bundle_binarize": {"B": 2048, "C": 10, "D": 8192, "binarize": False},
 }
 
 
@@ -195,8 +347,8 @@ def device_ms(torch, fn, iters: int):
     return total_us / iters / 1e3 if total_us else "not measured"
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / INT32_OPS_PER_S
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -244,7 +396,7 @@ def library_packed_int_mm(torch, results, got, bits_q, bits_r, shape) -> None:
     results["hamming_packed"]["timed"][json.dumps(shape, sort_keys=True)]["library_ms"] = ms
 
 
-def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
+def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dict]:
     """Each kernel against its plain version; times at the serving shapes."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -270,16 +422,17 @@ def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
         r = results.setdefault(name, {"max_abs_err": 0})
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if timed is not None:
-            kernel_fn, plain_fn, n_bytes, n_ops = timed
+            kernel_fn, plain_fn, n_bytes, n_ops, *rate = timed
             ms = time_ms(torch, kernel_fn, 50)
             dev_ms = device_ms(torch, kernel_fn, 20)
             plain = time_ms(torch, plain_fn, 3)
-            b_ms, b_by = bound_ms(n_bytes, n_ops)
+            b_ms, b_by = bound_ms(n_bytes, n_ops, *rate)
+            share = b_ms / dev_ms if isinstance(dev_ms, float) else "not measured"
             emit("kernel_time", kernel=name, shape=shape, ms=ms, device_ms=dev_ms,
-                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
+                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, bound_share=share)
             r.setdefault("timed", {})[json.dumps(shape, sort_keys=True)] = dict(
                 ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                shape=shape,
+                bound_share=share, shape=shape,
             )
 
     # -- encode_bundle: the serving batch, then ragged cases, one with an int32
@@ -385,12 +538,111 @@ def kernel_phase(torch, ops, ref, sobol, unary) -> dict[str, dict]:
               (k_fn, p_fn, n_bytes, 3 * b * c * w) if timed else None)
         if timed:
             library_packed_int_mm(torch, results, got, bits_q, bits_r, shape)
+
+    # -- encode_unary_mxu: the uhd table encode's operands at the serving batch
+    #    (also equal to encode_bundle's output), the baseline encoder's at the
+    #    serving and training batches, then ragged ---------------------------
+    levels = 16
+    p_base, l_base = (t.to(dev) for t in encoding.make_baseline_codebooks(
+        prng.prng_key(0), 784, 8192, levels))
+    for b, kind in [(64, "uhd"), (64, "baseline"), (2048, "baseline"), (5, "ragged")]:
+        if kind == "uhd":
+            x, tab = rand_x(b, 784, levels), table(784, 8192, levels)
+            build = lambda: ref.unary_mxu_operands(x, tab, levels)  # noqa: E731
+            op_fn = lambda: ops.encode_unary_mxu(x, tab, levels)  # noqa: E731
+        elif kind == "baseline":
+            x = rand_x(b, 784, levels)
+            build = lambda: ref.baseline_operands(x, p_base, l_base)  # noqa: E731
+            op_fn = lambda: ops.encode_unary_mxu_operands(*build())  # noqa: E731
+        else:
+            u0 = (torch.rand((5, 1600), generator=gen, device=dev) < 0.3).to(torch.int8)
+            o0 = (torch.rand((700, 1600), generator=gen, device=dev) < 0.5).to(torch.int8)
+            build = lambda: (u0, o0, 784)  # noqa: E731
+            op_fn = None
+        u, o, h = build()
+        k_fn = lambda: ops.encode_unary_mxu_operands(u, o, h)  # noqa: E731
+        p_fn = lambda: ref.encode_unary_mxu(u, o, h)  # noqa: E731
+        got = k_fn()
+        torch.cuda.synchronize()
+        (bb, kk), d = u.shape, o.shape[0]
+        shape = dict(B=bb, K=kk, D=d, operands=kind)
+        want = [p_fn()]
+        if kind == "uhd":
+            if not torch.equal(got, ops.encode_bundle(x, tab)):
+                raise AssertionError("encode_unary_mxu differs from encode_bundle on uhd operands")
+        elif kind == "baseline" and b == 64:  # the gather form's (B, H, D) transient
+            want.append(encoding.baseline_encode_naive(x, p_base, l_base))
+        n_bytes = bb * kk + d * kk + bb * d * 4
+        timed = None if kind == "ragged" else (k_fn, p_fn, n_bytes, 2 * bb * kk * d,
+                                               INT8_TC_OPS_PER_S)
+        check("encode_unary_mxu", [got] * len(want), want, shape, timed)
+        if timed:
+            library_unary_int_mm(torch, results, got, u, o, h, shape)
+            op_ms = time_ms(torch, op_fn, 20)
+            build_ms = time_ms(torch, build, 20)
+            emit("op_time", kernel="encode_unary_mxu", shape=shape, op_ms=op_ms,
+                 operand_build_ms=build_ms, kernel_ms=results["encode_unary_mxu"]["timed"][
+                     json.dumps(shape, sort_keys=True)]["ms"])
+            results["encode_unary_mxu"]["timed"][json.dumps(shape, sort_keys=True)].update(
+                op_ms=op_ms, operand_build_ms=build_ms)
+
+    # -- bundle_binarize: train_hdc's batch, the smoke's, then ragged with an
+    #    out-of-range label; both modes ---------------------------------------
+    for b, c, d in [(2048, 10, 8192), (512, 10, 8192), (7, 12, 1000)]:
+        hv = torch.randint(-784, 785, (b, d), generator=gen, device=dev, dtype=torch.int32)
+        labels = torch.randint(0, c, (b,), generator=gen, device=dev, dtype=torch.int32)
+        if b == 7:
+            labels[2] = c  # out of range: dropped
+        for binarize in (False, True):
+            k_fn = lambda: ops.bundle_binarize(hv, labels, c, binarize=binarize)  # noqa: E731
+            p_fn = lambda: ref.bundle_binarize(  # noqa: E731
+                hv, ref.class_onehot(labels, c), binarize=binarize)
+            got = k_fn()
+            torch.cuda.synchronize()
+            shape = dict(B=b, C=c, D=d, binarize=binarize)
+            n_bytes = b * d * 4 + b * 4 + c * d * (1 if binarize else 4)
+            timed = None if b == 7 else (k_fn, p_fn, n_bytes, b * d)
+            check("bundle_binarize", [got], [p_fn()], shape, timed)
+            if timed and not binarize:
+                library_index_add(torch, results, got, hv, labels, c, shape)
     return results
 
 
-def path_launches(ops, name: str, kernels: tuple[str, ...], fn):
+def library_unary_int_mm(torch, results, got, u, o, h, shape) -> None:
+    """Time ``torch._int_mm`` of kernel 7's own int8 operands, (B, K) times
+    the (K, D) transpose of O (made contiguous outside the timed region);
+    2 * count - h must equal the kernel's output."""
+    ot = o.t().contiguous()
+    counts = torch._int_mm(u, ot)
+    torch.cuda.synchronize()
+    equal = torch.equal(2 * counts - h, got)
+    ms = time_ms(torch, lambda: torch._int_mm(u, ot), 20)
+    emit("library_time", kernel="encode_unary_mxu", call="torch._int_mm", shape=shape, ms=ms,
+         equal=equal)
+    if not equal:
+        raise AssertionError("torch._int_mm's counts differ from encode_unary_mxu's")
+    results["encode_unary_mxu"]["timed"][json.dumps(shape, sort_keys=True)]["library_ms"] = ms
+
+
+def library_index_add(torch, results, got, hv, labels, c, shape) -> None:
+    """Time one int32 ``index_add_`` computing the class sums (all labels are
+    in range here); the result must equal the kernel's."""
+    lab = labels.to(torch.int64)
+    zeros = torch.zeros((c, hv.shape[1]), dtype=torch.int32, device=hv.device)
+    fn = lambda: zeros.clone().index_add_(0, lab, hv)  # noqa: E731
+    equal = torch.equal(fn(), got)
+    ms = time_ms(torch, fn, 50)
+    emit("library_time", kernel="bundle_binarize", call="Tensor.index_add_", shape=shape,
+         ms=ms, equal=equal)
+    if not equal:
+        raise AssertionError("index_add_'s sums differ from bundle_binarize's")
+    results["bundle_binarize"]["timed"][json.dumps(shape, sort_keys=True)]["library_ms"] = ms
+
+
+def path_launches(ops, name: str, kernels: tuple[str, ...], fn, absent: tuple[str, ...] = ()):
     """Run fn with every launch count set to 0 before and read after; raise
-    if it launched none of `kernels`, the kernels of that path."""
+    if it launched none of `kernels`, the kernels of that path, or any of
+    `absent`, kernels that are not on it."""
     import torch
 
     ops.reset_launches()
@@ -401,6 +653,9 @@ def path_launches(ops, name: str, kernels: tuple[str, ...], fn):
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the {name} path launched no {missing} kernel")
+    stray = [k for k in absent if launches[k]]
+    if stray:
+        raise AssertionError(f"the {name} path launched {stray}, which are not on it")
     return out, launches
 
 
@@ -408,7 +663,8 @@ def sha256_of(sums) -> str:
     return hashlib.sha256(sums.cpu().numpy().astype("<i4").tobytes()).hexdigest()
 
 
-def slice_phase(torch, ops, serve_hdc, encoder: str, kernels: tuple[str, ...]):
+def slice_phase(torch, ops, serve_hdc, encoder: str, kernels: tuple[str, ...],
+                absent: tuple[str, ...] = ()):
     """The serving smoke at the JAX smoke's configuration, launches counted."""
     ckpt = ROOT / "build" / f"chip_smoke_ckpt_{encoder}"
     args = serve_hdc.parser().parse_args([
@@ -427,9 +683,11 @@ def slice_phase(torch, ops, serve_hdc, encoder: str, kernels: tuple[str, ...]):
                 raise AssertionError("the uhd model converted to uhd_dynamic predicts otherwise")
         return result, converted
 
-    (result, converted), launches = path_launches(ops, f"slice_{encoder}", kernels, run)
+    (result, converted), launches = path_launches(ops, f"slice_{encoder}", kernels, run, absent)
+    want_sha, want_acc = ((JAX_BASELINE_SHA256, JAX_BASELINE_SERVED_ACCURACY)
+                          if encoder == "baseline" else (JAX_CLASS_SUMS_SHA256, JAX_SERVED_ACCURACY))
 
-    for step, (model, want) in enumerate(zip(result.models, JAX_CLASS_SUMS_SHA256)):
+    for step, (model, want) in enumerate(zip(result.models, want_sha)):
         got = sha256_of(model.class_sums)
         emit("class_sums", encoder=encoder, step=step, sha256=got, jax_sha256=want,
              equal=got == want)
@@ -443,15 +701,14 @@ def slice_phase(torch, ops, serve_hdc, encoder: str, kernels: tuple[str, ...]):
         raise AssertionError("search(k=3)[:, 0] differs from predict")
     if not ((dist[:, :-1] <= dist[:, 1:]).all() and (dist >= 0).all()):
         raise AssertionError("search distances are not ascending")
-    if round(result.accuracy, 4) != JAX_SERVED_ACCURACY:
-        raise AssertionError(f"{encoder} served accuracy {result.accuracy} != JAX's "
-                             f"{JAX_SERVED_ACCURACY}")
+    if round(result.accuracy, 4) != round(want_acc, 4):
+        raise AssertionError(f"{encoder} served accuracy {result.accuracy} != JAX's {want_acc}")
 
     batch_ms = [t * 1e3 for s in result.serve for t in s.batch_s]
     n_served = sum(len(s.labels) for s in result.serve)
     serve_s = sum(s.wall_s for s in result.serve)
     emit(
-        "slice", encoder=encoder, accuracy=result.accuracy, jax_accuracy=JAX_SERVED_ACCURACY,
+        "slice", encoder=encoder, accuracy=result.accuracy, jax_accuracy=want_acc,
         n_requests=n_served, batch=args.batch, fit_s=result.fit_s[0],
         partial_fit_s=result.fit_s[1], batch_ms_mean=sum(batch_ms) / len(batch_ms),
         batch_ms_max=max(batch_ms), batch_ms_first=batch_ms[0], img_per_s=n_served / serve_s,
@@ -485,6 +742,51 @@ def train_phase(torch, ops, train_hdc, load_dataset):
         raise AssertionError(f"train_hdc labels differ from JAX's on {n_differ} images")
     if result.round_trip_ok is not True:
         raise AssertionError("train_hdc checkpoint round trip failed")
+    return launches
+
+
+def train_baseline_phase(torch, ops, train_hdc, load_dataset):
+    """``train_hdc --encoder baseline --compare-baseline --baseline-iters 5`` at
+    the launcher's defaults, launches counted: the seed-0 model and each
+    retrain's class sums against the JAX package's checksums, their cosine
+    labels against JAX's (at most 2 of 1024 may differ, the float32 near-tie
+    rule), and the checkpoint round trip."""
+    import numpy as np
+
+    args = train_hdc.parser().parse_args([
+        "--device", "cuda", "--encoder", "baseline", "--compare-baseline",
+        "--baseline-iters", "5", "--save-dir", str(ROOT / "build" / "chip_smoke_train_baseline"),
+    ])
+    result, launches = path_launches(
+        ops, "train_baseline", ("encode_unary_mxu", "bundle_binarize"),
+        lambda: train_hdc.train(args),
+        ("encode_bundle", "fit_bundle", "encode_bundle_dynamic", "fit_bundle_dynamic"),
+    )
+    ds = load_dataset(args.dataset, n_train=args.n_train, n_test=args.n_test)
+    runs = [("train", 0, result.model, result.accuracy)] + [
+        ("retrain", i, m, a) for i, (m, a) in
+        enumerate(zip(result.baseline_models, result.baseline_accs))
+    ]
+    for what, seed, model, acc in runs:
+        got = sha256_of(model.class_sums)
+        labels = model.predict(ds.test_images).cpu().numpy()
+        want = [int(c) for c in "".join(JAX_BASELINE_TRAIN_LABELS[seed])]
+        n_differ = int(sum(int(a) != b for a, b in zip(labels, want)))
+        jax_acc = JAX_BASELINE_TRAIN_ACCURACY[seed]
+        emit("train_baseline", run=what, seed=seed, class_sums_sha256=got,
+             jax_sha256=JAX_BASELINE_TRAIN_SHA256[seed], equal=got == JAX_BASELINE_TRAIN_SHA256[seed],
+             accuracy=acc, jax_accuracy=jax_acc, labels_differing_from_jax=n_differ)
+        if got != JAX_BASELINE_TRAIN_SHA256[seed]:
+            raise AssertionError(f"baseline seed {seed} class sums differ from the JAX package's")
+        if abs(acc - jax_acc) > 2 / 1024 or n_differ > 2:
+            raise AssertionError(f"baseline seed {seed} labels differ from JAX's on {n_differ} images")
+    if len(result.baseline_accs) != 5 or result.round_trip_ok is not True:
+        raise AssertionError("train_hdc --encoder baseline: retrains missing or round trip failed")
+    accs = np.asarray(result.baseline_accs)
+    jax_accs = np.asarray(JAX_BASELINE_TRAIN_ACCURACY)
+    emit("train_baseline", run="summary", avg=float(accs.mean()), best=float(accs.max()),
+         jax_avg=float(jax_accs.mean()), jax_best=float(jax_accs.max()), fit_s=result.fit_s,
+         evaluate_s=result.eval_s, round_trip_ok=result.round_trip_ok)
     return launches
 
 
@@ -713,7 +1015,9 @@ def main() -> int:
     from types import SimpleNamespace
 
     from repro_torch.checkpoint.manager import CheckpointManager
-    from repro_torch.core import HDCConfig, HDCModel, ItemMemory, partial_fit_sharded, sobol, unary
+    from repro_torch.core import (
+        HDCConfig, HDCModel, ItemMemory, encoding, partial_fit_sharded, prng, sobol, unary,
+    )
     from repro_torch.data import load_dataset
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve_hdc, train_hdc
@@ -747,7 +1051,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_info["seconds"],
          cached=_build.build_info["cached"], ptxas=ptxas)
 
-    results = kernel_phase(torch, ops, ref, sobol, unary)
+    results = kernel_phase(torch, ops, ref, sobol, unary, encoding, prng)
     by_path = {}
     by_path["slice_uhd_dynamic"], result_dyn = slice_phase(
         torch, ops, serve_hdc, "uhd_dynamic",
@@ -769,11 +1073,19 @@ def main() -> int:
         torch, ops, api, result_uhd.models[1], result_uhd.probe, stored, dev
     ))
     by_path["train_shard_map"] = train_shard_map_phase(torch, ops, train_hdc)
+    uhd_kernels = ("encode_bundle", "fit_bundle", "encode_bundle_dynamic", "fit_bundle_dynamic",
+                   "hamming_packed")
+    by_path["slice_baseline"], result_base = slice_phase(
+        torch, ops, serve_hdc, "baseline", ("encode_unary_mxu", "bundle_binarize", "hamming_topk"),
+        uhd_kernels,
+    )
+    by_path["train_baseline"] = train_baseline_phase(torch, ops, train_hdc, load_dataset)
     probe = result_uhd.probe[:64]
     profile_phase(torch, result_dyn.engines[1], probe, "uhd_dynamic")
     profile_phase(torch, result_uhd.engines[1], probe, "uhd")
     profile_phase(torch, sharded_engines["uhd_dynamic", 8192], probe, "uhd_dynamic, 4 shards")
     profile_phase(torch, sharded_engines["uhd", 8192], probe, "uhd, 4 shards")
+    profile_phase(torch, result_base.engines[1], probe, "baseline")
 
     line = []
     for name, meta in KERNELS.items():
@@ -786,8 +1098,10 @@ def main() -> int:
             "launches_by_path": {p: n[name] for p, n in by_path.items() if n[name]},
             "max_abs_err": r["max_abs_err"], "ms": t["ms"], "device_ms": t["device_ms"],
             "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
             "library_ms": t.get("library_ms"), "shape": t["shape"], "equal": True,
+            **({"op_ms": t["op_ms"], "operand_build_ms": t["operand_build_ms"]}
+               if "op_ms" in t else {}),
             "other_shapes": [v for k, v in r["timed"].items() if k != main],
         })
         if line[-1]["launches"] <= 0:

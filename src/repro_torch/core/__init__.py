@@ -1,15 +1,17 @@
-"""uHD core of the port: Sobol numbers, packed bits, the ``uhd`` and
-``uhd_dynamic`` encoders, `HDCModel` (and its D-sharded form) and
-`ItemMemory`."""
+"""uHD core of the port: Sobol numbers, packed bits, the ``uhd``,
+``uhd_dynamic`` and ``baseline`` encoders, `HDCModel` (and its D-sharded
+form), the trainers' helpers and `ItemMemory`."""
 
 from repro_torch.core.model import HDCConfig  # noqa: F401
 from repro_torch.core.hdc_model import (  # noqa: F401
     HDCModel,
     ShardedHDCModel,
+    baseline_iterative_search,
     partial_fit_sharded,
     predict_packed,
     resolve_device,
     search_packed,
+    train_and_eval,
 )
 from repro_torch.core.item_memory import ItemMemory  # noqa: F401
 from repro_torch.core.registry import (  # noqa: F401

@@ -1,5 +1,5 @@
-"""The uHD encoders, ``uhd`` (stored table) and ``uhd_dynamic``
-(table-free), and their two datapaths each.
+"""The encoders, ``uhd`` (stored table), ``uhd_dynamic`` (table-free)
+and ``baseline`` (the paper's Fig. 1), and their two datapaths each.
 
 Both encode a pixel h against the quantized Sobol thresholds S[h, :]
 (see ``repro.core.encoders``, :93-308): ``uhd`` stores the (H, D)
@@ -14,10 +14,17 @@ they give bit-identical hypervectors, so they are one family and
   * ``"ref"`` — the plain PyTorch versions of
     :mod:`repro_torch.kernels.ref`, for tensors on the CPU.
 
-The device is the only datapath switch: the JAX package's other ``uhd``
+``baseline`` binds pseudo-random position hypervectors P (H, D) with
+level hypervectors L (levels + 1, D), both ±1 int8 and drawn as the JAX
+package draws them (:mod:`repro_torch.core.prng`).  Its ``"cuda"``
+datapath encodes through the int8 tensor-core kernel
+``ops.encode_unary_mxu_operands`` and trains by encode, then the
+bundling kernel (it registers no fused step, as in JAX).
+
+The device is the only datapath switch: the JAX package's other
 datapaths (``naive``, ``blocked``, ``unary_matmul``, ``unary_oracle``)
-are not registered, and a manifest that names one loads as ``"auto"``.
-The ``baseline`` encoder is not ported yet (ROADMAP.md).
+are plain functions in :mod:`repro_torch.core.encoding`, not registered
+backends, and a manifest that names one loads as ``"auto"``.
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 import torch
 
-from repro_torch.core import sobol
+from repro_torch.core import prng, sobol
 from repro_torch.core.registry import (
     EncoderBase,
     register_backend,
@@ -207,6 +214,57 @@ def _cuda_encode_slice(cfg, books, x_q, *, d, point_offset):
 
 @register_topk("uhd_dynamic", "cuda")
 def _cuda_topk(q_words, c_words, d, k):
+    """CUDA split-C packed-Hamming top-k kernel with an exact merge."""
+    from repro_torch.kernels import ops
+
+    return ops.hamming_topk(q_words, c_words, d, k)
+
+
+@register_encoder("baseline")
+class BaselineEncoder(EncoderBase):
+    """Comparator-generated pseudo-random position/level codebooks
+    ``{"p": (H, D), "level": (levels + 1, D)}``, ±1 int8, drawn from
+    ``jax.random.PRNGKey(cfg.seed)`` as the JAX package draws them: the
+    paper's iteration index i is ``seed=i``.  The class policies are
+    ``EncoderBase``'s (sign-binarized class sums, no centering)."""
+
+    auto_order = {"cuda": ("cuda",), "default": ("ref",)}
+    family = "baseline"
+
+    def build_codebooks(self, cfg: "HDCConfig") -> dict[str, torch.Tensor]:
+        from repro_torch.core import encoding
+
+        p, level = encoding.make_baseline_codebooks(
+            prng.prng_key(cfg.seed), cfg.n_features, cfg.d, cfg.levels
+        )
+        return {"p": p, "level": level}
+
+    def codebook_specs(self, cfg: "HDCConfig") -> dict[str, tuple[tuple[int, ...], np.dtype]]:
+        return {
+            "p": ((cfg.n_features, cfg.d), np.dtype(np.int8)),
+            "level": ((cfg.levels + 1, cfg.d), np.dtype(np.int8)),
+        }
+
+
+@register_backend("baseline", "ref", available=_off_card)
+def _baseline_ref_encode(cfg, books, x_q):
+    """Plain PyTorch one-hot contraction (CPU tensors)."""
+    from repro_torch.core import encoding
+
+    return encoding.baseline_encode(x_q, books["p"], books["level"])
+
+
+@register_backend("baseline", "cuda", available=_on_card)
+def _baseline_cuda_encode(cfg, books, x_q):
+    """The one-hot x [P == L] product on the int8 tensor-core kernel
+    (kernel 7); its operands are built per call."""
+    from repro_torch.kernels import ops, ref as kref
+
+    return ops.encode_unary_mxu_operands(*kref.baseline_operands(x_q, books["p"], books["level"]))
+
+
+@register_topk("baseline", "cuda")
+def _baseline_cuda_topk(q_words, c_words, d, k):
     """CUDA split-C packed-Hamming top-k kernel with an exact merge."""
     from repro_torch.kernels import ops
 

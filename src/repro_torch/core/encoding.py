@@ -1,17 +1,24 @@
-"""Quantization, uHD encoding (table and table-free), bundling and binarization.
+"""Quantization, the uHD and baseline encoders, bundling and binarization.
 
-The torch counterpart of the parts of ``repro.core.encoding`` that the
-``uhd`` and ``uhd_dynamic`` paths run.  A pixel h with quantized intensity x_h and
-Sobol thresholds S[h, :] contributes the level hypervector
-``L_h[d] = +1 if x_h >= S[h, d] else -1``; an image hypervector is
-``sum_h L_h`` (no position hypervectors, no binding).  Every function
-here is integer-exact and equals its JAX counterpart bit for bit.
+The torch counterpart of ``repro.core.encoding``.  uHD: a pixel h with
+quantized intensity x_h and Sobol thresholds S[h, :] contributes the
+level hypervector ``L_h[d] = +1 if x_h >= S[h, d] else -1``; an image
+hypervector is ``sum_h L_h`` (no position hypervectors, no binding).
+The baseline (paper Fig. 1) binds pseudo-random position hypervectors
+P[h] with level hypervectors L[x_h] and bundles: ``sum_h P[h] * L[x_h]``.
+Every function here is integer-exact and equals its JAX counterpart
+bit for bit; the several uHD datapaths of the JAX package
+(``blocked``, ``unary_matmul``, ``unary_oracle``) come over as plain
+functions for the tests, since the port's device is its only datapath
+switch.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.core import prng, unary
 
 
 def quantize_images(
@@ -49,6 +56,37 @@ def uhd_encode(x_q: torch.Tensor, sobol_q: torch.Tensor) -> torch.Tensor:
     return 2 * ge.sum(dim=1, dtype=torch.int32) - h
 
 
+def uhd_encode_blocked(x_q: torch.Tensor, sobol_q: torch.Tensor, block_d: int = 2048) -> torch.Tensor:
+    """:func:`uhd_encode` with D blocked, so the compare transient is
+    (B, H, block_d)."""
+    from repro_torch.kernels import ref as kref
+
+    return kref.encode_bundle(x_q, sobol_q, block_d=block_d)
+
+
+def uhd_encode_unary_matmul(x_q: torch.Tensor, sobol_q: torch.Tensor, levels: int) -> torch.Tensor:
+    """The binary-matmul form of the uHD encode: the inclusive
+    thermometer of x, (B, H * levels), times the one-hot of the
+    thresholds, (H * levels, D), counts ``#{h : x >= S}`` exactly; the
+    plain version of kernel 7 on those operands."""
+    from repro_torch.kernels import ref as kref
+
+    return kref.encode_unary_mxu(*kref.unary_mxu_operands(x_q, sobol_q, levels))
+
+
+def uhd_encode_via_unary_comparator(
+    x_q: torch.Tensor, sobol_q: torch.Tensor, levels: int
+) -> torch.Tensor:
+    """Bit-exact functional simulation of the uHD datapath (Figs. 3-4):
+    fetch from the unary stream table, unary comparator, ±1, bundle.
+    Slow; a cross-oracle for the tests."""
+    ust = unary.unary_stream_table(levels, device=x_q.device)
+    xs = unary.fetch_unary(x_q, ust)  # (B, H, W)
+    ss = unary.fetch_unary(sobol_q, ust)  # (H, D, W)
+    ge = unary.unary_ge(xs[:, :, None, :], ss[None, :, :, :], levels)  # (B, H, D)
+    return 2 * ge.sum(dim=1, dtype=torch.int32) - x_q.shape[-1]
+
+
 def uhd_encode_dynamic(
     x_q: torch.Tensor, direction: torch.Tensor, d: int, *, skip: int = 1
 ) -> torch.Tensor:
@@ -62,17 +100,55 @@ def uhd_encode_dynamic(
     return kref.encode_bundle_dynamic(x_q, direction, d, skip=skip)
 
 
+def make_baseline_codebooks(
+    key: np.ndarray, n_features: int, d: int, levels: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pseudo-random position and level hypervectors (paper Fig. 1(a)),
+    the JAX package's draw from the same ``jax.random`` key (a
+    :func:`repro_torch.core.prng.prng_key`), bit for bit.
+
+    P: (H, D) ±1 int8, iid (a uniform compared with 0.5).
+    L: (levels + 1, D) ±1 int8: level k is -1 where R > k for R ~
+    U[0, levels + 1), so neighbouring levels are correlated.
+    """
+    kp, kl = prng.split(key)
+    p = np.where(prng.uniform(kp, (n_features, d)) > np.float32(0.5), -1, 1).astype(np.int8)
+    r = prng.uniform(kl, (d,), 0.0, float(levels + 1))
+    ks = np.arange(levels + 1, dtype=np.float32)[:, None]
+    level = np.where(r[None, :] > ks, -1, 1).astype(np.int8)
+    return torch.from_numpy(p), torch.from_numpy(level)
+
+
+def baseline_encode_naive(x_q: torch.Tensor, p: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    """Gather-based baseline: ``hv[b] = sum_h P[h] * L[x[b, h]]``, the
+    direct transcription of Fig. 1 ((B, H, D) transient; tests only)."""
+    bound = p[None, :, :].to(torch.int32) * level[x_q.to(torch.int64)].to(torch.int32)
+    return bound.sum(dim=1, dtype=torch.int32)
+
+
+def baseline_encode(x_q: torch.Tensor, p: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    """Baseline bind + bundle ``hv[b] = sum_h P[h] * L[x[b, h]]`` as the
+    JAX package contracts it: one (B, V*H) one-hot times (V*H, D) [P*L]
+    product, here in its binary form ``2 * (U @ [P == L]) - H`` (the
+    plain version of kernel 7 on ``ref.baseline_operands``), (B, H) int,
+    (H, D), (V, D) ±1 -> (B, D) int32."""
+    from repro_torch.kernels import ref as kref
+
+    return kref.encode_unary_mxu(*kref.baseline_operands(x_q, p, level))
+
+
 def bundle_by_class(hvs: torch.Tensor, labels: torch.Tensor, n_classes: int) -> torch.Tensor:
-    """Per-class int32 segment sum, (B, D), (B,) -> (C, D).
+    """Per-class int32 sums, (B, D), (B,) -> (C, D), through the
+    bundling kernel (``ops.bundle_binarize`` without the sign): kernel 8
+    on a card, its plain version on the CPU.
 
     A label outside ``[0, n_classes)`` is dropped from the sums, as in
     the JAX package; the host-facing entry points reject such labels
     first with :func:`validate_labels`.
     """
-    labels = labels.to(torch.int64)
-    keep = (labels >= 0) & (labels < n_classes)
-    out = torch.zeros((n_classes, hvs.shape[-1]), dtype=torch.int32, device=hvs.device)
-    return out.index_add_(0, labels[keep], hvs[keep].to(torch.int32))
+    from repro_torch.kernels import ops
+
+    return ops.bundle_binarize(hvs, labels, n_classes, binarize=False)
 
 
 def validate_labels(labels, n_classes: int) -> None:

@@ -1,7 +1,8 @@
 """`HDCModel`: config + codebooks + class-sum state, as an ``nn.Module``.
 
 The torch counterpart of ``repro.core.hdc_model``.  The codebook
-(``sobol`` for ``uhd``, ``direction`` for ``uhd_dynamic``) and the raw int32 class-sum
+(``sobol`` for ``uhd``, ``direction`` for ``uhd_dynamic``, ``p`` and
+``level`` for ``baseline``) and the raw int32 class-sum
 accumulator ``class_sums`` are registered buffers on one explicit
 device; ``n_seen`` is a Python int, exact to 2**64, and crosses
 checkpoints as the JAX package's (2,) uint32 [hi, lo] split counter.
@@ -603,6 +604,44 @@ def partial_fit_sharded(model, images, labels, *, mesh, rules=None) -> ShardedHD
             total = part if total is None else total + part
         sums.append(sh.class_sums + total)
     return model._with_state(sums, model.n_seen + n)
+
+
+def train_and_eval(
+    cfg: HDCConfig, train_images, train_labels, test_images, test_labels,
+    batch_size: int = 2048, *, device: torch.device | str | None = None,
+    on_model=None,
+) -> float:
+    """Create, fit in batches of `batch_size`, evaluate: the test
+    accuracy.  ``on_model(model)``, when given, sees the trained model."""
+    model = HDCModel.create(cfg, device=device)
+    model = model.fit_batches(
+        (train_images[i : i + batch_size], train_labels[i : i + batch_size])
+        for i in range(0, len(train_images), batch_size)
+    )
+    if on_model is not None:
+        on_model(model)
+    return model.evaluate(test_images, test_labels)
+
+
+def baseline_iterative_search(
+    base_cfg: HDCConfig, train_images, train_labels, test_images, test_labels,
+    iterations: int, batch_size: int = 2048, *, device: torch.device | str | None = None,
+    on_model=None,
+) -> list[float]:
+    """The paper's baseline protocol (Table IV, Fig. 6(a)): for each
+    iteration i, draw new pseudo-random P and L (``seed=i``), retrain from
+    scratch and record the test accuracy.  The backend resets to
+    ``"auto"``, as backend names are per encoder.  ``on_model(i, model)``,
+    when given, sees each trained model."""
+    accs = []
+    for i in range(iterations):
+        cfg = dataclasses.replace(base_cfg, encoder="baseline", seed=i, backend="auto")
+        hook = None if on_model is None else (lambda m, i=i: on_model(i, m))
+        accs.append(train_and_eval(
+            cfg, train_images, train_labels, test_images, test_labels, batch_size,
+            device=device, on_model=hook,
+        ))
+    return accs
 
 
 # ---------------------------------------------------------------------------

@@ -4,9 +4,10 @@ The same fields, defaults and validation as ``repro.core.model.HDCConfig``
 (less the deprecated ``use_kernels``/``encode_impl`` aliases), so a
 config round-trips through a checkpoint manifest written by either
 package.  Backend names differ between the packages: the port's
-``"cuda"`` datapath is the JAX package's ``"pallas"``.  A manifest never
-carries ``"cuda"``, because the JAX package rejects a backend name it
-does not know (:func:`manifest_config`).  The backend is a choice made
+``"cuda"`` datapath is the JAX package's ``"pallas"`` where the JAX
+encoder has one.  A manifest carries only a backend name that the JAX
+package registers for the encoder, because the JAX package rejects any
+other (:func:`manifest_config`).  The backend is a choice made
 where a model runs, not model state: a manifest's backend reads back as
 ``"auto"`` (:func:`config_from_manifest`), so a checkpoint written with
 either package's ``"ref"`` or ``"pallas"`` loads on a card and on the CPU.
@@ -19,6 +20,12 @@ from typing import Any
 
 #: port backend name -> JAX package backend name
 _TO_MANIFEST = {"cuda": "pallas"}
+#: the JAX package's backend names per encoder (``repro.core.encoders``), a copy
+_JAX_BACKENDS = {
+    "uhd": ("naive", "blocked", "unary_matmul", "pallas", "unary_oracle"),
+    "uhd_dynamic": ("ref", "pallas"),
+    "baseline": ("naive", "unary_matmul"),
+}
 #: fields of the JAX config that are deprecated aliases folded into
 #: ``backend``; older manifests may still carry them.
 _LEGACY_FIELDS = ("use_kernels", "encode_impl")
@@ -32,7 +39,7 @@ class HDCConfig:
     n_classes: int
     d: int = 8192  # hypervector dimensionality D
     levels: int = 16  # quantization levels (M = log2(levels) bits)
-    encoder: str = "uhd"  # a registered encoder ("uhd" or "uhd_dynamic")
+    encoder: str = "uhd"  # a registered encoder ("uhd", "uhd_dynamic", "baseline")
     seed: int = 0
     sobol_skip: int = 1
     class_binarize: str = "auto"  # "auto" | "sign" | "none"
@@ -79,9 +86,12 @@ class HDCConfig:
 
 
 def manifest_config(cfg: HDCConfig) -> dict[str, Any]:
-    """The config as a checkpoint manifest stores it (JAX backend names)."""
+    """The config as a checkpoint manifest stores it: the backend under
+    the JAX package's name where its encoder registers one (``"cuda"`` ->
+    ``"pallas"``, ``"ref"`` for ``uhd_dynamic``), else ``"auto"``."""
     raw = dataclasses.asdict(cfg)
-    raw["backend"] = _TO_MANIFEST.get(raw["backend"], raw["backend"])
+    name = _TO_MANIFEST.get(cfg.backend, cfg.backend)
+    raw["backend"] = name if name in _JAX_BACKENDS.get(cfg.encoder, ()) else "auto"
     return raw
 
 

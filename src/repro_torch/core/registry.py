@@ -14,7 +14,10 @@ hand-written kernels and is available exactly when the tensors are on a
 card; the plain ``"ref"`` backend is for CPU tensors.  An explicit name
 that does not fit the device raises :class:`BackendUnavailableError`
 (a ``ValueError``); nothing demotes one backend to another, and a build
-or launch failure of a kernel propagates.
+or launch failure of a kernel propagates.  A backend without a fused
+training step trains by encode, then ``encoding.bundle_by_class`` (the
+bundling kernel on a card); one without a top-k datapath searches
+through ``ops.hamming_topk``, which also chooses by device.
 """
 
 from __future__ import annotations
@@ -101,14 +104,27 @@ class EncoderBase:
         point_offset: int | None = None,
     ) -> torch.Tensor:
         """Quantized features + labels -> (C, d) int32 class sums through
-        the backend's fused training step (every backend of the port
-        registers one).  ``d`` (default ``cfg.d``) is the local width and
+        the backend's fused training step, or, where it registers none,
+        its encode followed by ``encoding.bundle_by_class``; both give the
+        same sums.  ``d`` (default ``cfg.d``) is the local width and
         ``point_offset`` a generator shard's start in the Sobol stream:
-        the D-sharding hooks (a table shard's codebook is pre-sliced)."""
+        the D-sharding hooks (a table shard's codebook is pre-sliced).  A
+        ``point_offset`` needs a fused step: the fallback cannot re-aim a
+        generated encode at a D-slice."""
         spec = self._spec(backend, platform_of(x_q.device))
-        return spec.fit_bundle(
-            cfg, codebooks, x_q, labels, d=cfg.d if d is None else d, point_offset=point_offset
-        )
+        if spec.fit_bundle is not None:
+            return spec.fit_bundle(
+                cfg, codebooks, x_q, labels, d=cfg.d if d is None else d,
+                point_offset=point_offset,
+            )
+        if point_offset is not None:
+            raise BackendUnavailableError(
+                f"backend {spec.name!r} of encoder {self.name!r} registers no fused "
+                "fit_bundle datapath; sharded generator D-slices (point_offset) need one"
+            )
+        from repro_torch.core import encoding  # deferred: avoids an import cycle
+
+        return encoding.bundle_by_class(spec.fn(cfg, codebooks, x_q), labels, cfg.n_classes)
 
     def encode_slice(
         self, cfg, codebooks, x_q, *, backend: str = "auto", d: int | None = None,
@@ -133,14 +149,15 @@ class EncoderBase:
 
     def topk(self, q_words, c_words, d: int, k: int, *, backend: str = "auto"):
         """Packed top-k retrieval, the single dispatch point of the
-        serving path; backends without a top-k datapath use the tiled
-        plain version."""
+        serving path; a backend without a top-k datapath runs
+        ``ops.hamming_topk``, which chooses by device (the kernel on a
+        card, the plain version on the CPU)."""
         spec = self._spec(backend, platform_of(q_words.device))
         if spec.topk is not None:
             return spec.topk(q_words, c_words, d, k)
-        from repro_torch.kernels import ref as kref
+        from repro_torch.kernels import ops
 
-        return kref.hamming_topk(q_words, c_words, d, k)
+        return ops.hamming_topk(q_words, c_words, d, k)
 
 
 def register_encoder(name: str) -> Callable[[type], type]:

@@ -1,6 +1,8 @@
-"""Packed-bit primitives for binarized hypervectors (32 dims per word).
+"""Unary bit streams and packed-bit primitives (32 dims per word).
 
-The torch counterpart of the packing half of ``repro.core.unary``.
+The torch counterpart of ``repro.core.unary``: thermometer codes, the
+unary stream table and the uHD unary comparator (paper Figs. 3-4), and
+the packing of binarized hypervectors.
 Packed words are kept as **int32 bit patterns** of the JAX package's
 uint32 words: this torch has no ``>>`` or ``>=`` for ``torch.uint32`` on
 the CPU, and ``int32 >>`` is arithmetic.  So shifts run in int64 masked
@@ -28,6 +30,23 @@ def as_u32(words: torch.Tensor) -> torch.Tensor:
 def to_i32(u: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2**32) -> int32 bit patterns."""
     return torch.where(u >= 1 << 31, u - (1 << 32), u).to(torch.int32)
+
+
+def _tail_mask(n_bits: int, device) -> torch.Tensor:
+    """Valid-bit mask of each word of an n_bits stream, (n_words,) int32."""
+    return pack_bits(torch.arange(n_words(n_bits) * WORD, device=device) < n_bits)
+
+
+def to_thermometer(x: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """Unary/thermometer code: value v in [0, n_bits] -> (..., n_bits)
+    bool, bit i set iff i < v (v leading ones, LSB first)."""
+    levels = torch.arange(n_bits, dtype=torch.int32, device=x.device)
+    return levels < x[..., None].to(torch.int32)
+
+
+def from_thermometer(bits: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`to_thermometer` (sums the ones) -> int32."""
+    return bits.to(torch.int32).sum(-1, dtype=torch.int32)
 
 
 def pack_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -62,6 +81,31 @@ def popcount_words(words: torch.Tensor) -> torch.Tensor:
 def popcount(words: torch.Tensor) -> torch.Tensor:
     """Total number of set bits along the trailing word axis -> int32."""
     return popcount_words(words).sum(-1).to(torch.int32)
+
+
+def unary_min(a_words: torch.Tensor, b_words: torch.Tensor) -> torch.Tensor:
+    """min of two unary streams: bit-wise AND (the streams are correlated)."""
+    return a_words & b_words
+
+
+def unary_ge(a_words: torch.Tensor, b_words: torch.Tensor, n_bits: int) -> torch.Tensor:
+    """The uHD comparator: a >= b iff AND-reduce(a OR NOT b) over the
+    valid bits; padding bits count as ones.  Packed words in, bool (...,)
+    out."""
+    mask = _tail_mask(n_bits, a_words.device)
+    t = a_words | (~b_words & mask) | ~mask
+    return (t == -1).all(dim=-1)
+
+
+def unary_stream_table(n_bits: int, device=None) -> torch.Tensor:
+    """The unary stream table (Fig. 3(c)): the packed stream of every
+    value 0..n_bits, (n_bits + 1, n_words) int32."""
+    return pack_bits(to_thermometer(torch.arange(n_bits + 1, device=device), n_bits))
+
+
+def fetch_unary(x: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Associative fetch of pre-stored unary streams: ``table[x]``."""
+    return table[x.to(torch.int64)]
 
 
 def pack_hypervector(hv: torch.Tensor) -> torch.Tensor:

@@ -28,10 +28,13 @@ LAUNCHES: dict[str, int] = {
     "fit_bundle_dynamic": 0,
     "hamming_topk": 0,
     "hamming_packed": 0,
+    "encode_unary_mxu": 0,
+    "bundle_binarize": 0,
 }
 
 #: grid-dimension limits of the kernels (gridDim.y <= 65535 rows of blocks)
 _MAX_ENCODE_ROWS = 65535 * 32
+_MAX_MXU_ROWS = 65535 * 64
 _MAX_FIT_ROWS = 65535 * 128
 _DIR_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
 _TABLE_DTYPES = (torch.int8, torch.int32)
@@ -256,4 +259,75 @@ def hamming_packed(q_words: torch.Tensor, c_words: torch.Tensor, d: int) -> torc
         )
     _check(err, "hamming_packed")
     LAUNCHES["hamming_packed"] += 1
+    return out
+
+
+def encode_unary_mxu_operands(u: torch.Tensor, onehot_t: torch.Tensor, h: int) -> torch.Tensor:
+    """Binary contraction with the affine epilogue on the int8 tensor
+    cores: (B, K) and (D, K) 0/1 int8 operands, K contiguous in both ->
+    (B, D) int32 ``2 * (u @ onehot_t.T) - h``.  A K that is not a
+    multiple of 32 is padded with zero columns here (they add nothing);
+    the operand builders of ``ref`` pad already.  Semantics:
+    ``ref.encode_unary_mxu``."""
+    if _on_cpu(u, onehot_t):
+        return ref.encode_unary_mxu(u, onehot_t, h)
+    if u.dim() != 2 or onehot_t.dim() != 2 or u.shape[1] != onehot_t.shape[1]:
+        raise ValueError(
+            f"expected (B, K) and (D, K) operands, got {tuple(u.shape)} and "
+            f"{tuple(onehot_t.shape)}"
+        )
+    if u.dtype != torch.int8 or onehot_t.dtype != torch.int8:
+        raise ValueError("encode_unary_mxu operands must be int8 0/1")
+    (b, k), d = u.shape, onehot_t.shape[0]
+    if b > _MAX_MXU_ROWS:
+        raise ValueError(f"encode_unary_mxu takes at most {_MAX_MXU_ROWS} rows, got {b}")
+    pad = -k % ref.K_ALIGN
+    if pad:
+        u = torch.nn.functional.pad(u, (0, pad))
+        onehot_t = torch.nn.functional.pad(onehot_t, (0, pad))
+    u, onehot_t = u.contiguous(), onehot_t.contiguous()
+    out = torch.empty((b, d), dtype=torch.int32, device=u.device)
+    if b == 0 or d == 0:
+        return out
+    with torch.cuda.device(u.device):
+        err = _build.library().uhd_encode_unary_mxu(
+            _ptr(u), _ptr(onehot_t), b, d, k + pad, int(h), _ptr(out), _stream(u.device)
+        )
+    _check(err, "encode_unary_mxu")
+    LAUNCHES["encode_unary_mxu"] += 1
+    return out
+
+
+def encode_unary_mxu(x_q: torch.Tensor, sobol_q: torch.Tensor, levels: int) -> torch.Tensor:
+    """The uHD table encode as a binary matmul, (B, H) int, (H, D) ->
+    (B, D) int32: builds the inclusive thermometer of x and the one-hot
+    of the thresholds (``ref.unary_mxu_operands``), then contracts them
+    (:func:`encode_unary_mxu_operands`).  Equal to ``encode_bundle``."""
+    return encode_unary_mxu_operands(*ref.unary_mxu_operands(x_q, sobol_q, levels))
+
+
+def bundle_binarize(
+    hvs: torch.Tensor, labels: torch.Tensor, n_classes: int, *, binarize: bool = True
+) -> torch.Tensor:
+    """Class bundling with the fused sign, (B, D) int, (B,) -> (C, D):
+    int8 ±1 signs of the per-class sums (ties -> +1) with ``binarize``,
+    else the int32 sums.  Labels outside [0, n_classes) are dropped.
+    Semantics: ``ref.bundle_binarize`` over ``ref.class_onehot``."""
+    if _on_cpu(hvs, labels):
+        return ref.bundle_binarize(hvs, ref.class_onehot(labels, n_classes), binarize=binarize)
+    if hvs.dim() != 2:
+        raise ValueError(f"hvs must be (B, D), got {tuple(hvs.shape)}")
+    hv = hvs.to(torch.int32).contiguous()
+    lab = labels.to(torch.int32).contiguous()
+    b, d = hv.shape
+    if lab.shape != (b,):
+        raise ValueError(f"labels must be ({b},), got {tuple(lab.shape)}")
+    out = torch.empty((n_classes, d), dtype=torch.int8 if binarize else torch.int32,
+                      device=hv.device)
+    with torch.cuda.device(hv.device):
+        err = _build.library().uhd_bundle_binarize(
+            _ptr(hv), _ptr(lab), b, n_classes, d, int(binarize), _ptr(out), _stream(hv.device)
+        )
+    _check(err, "bundle_binarize")
+    LAUNCHES["bundle_binarize"] += 1
     return out

@@ -6,7 +6,11 @@ the torch counterpart of a function in ``repro.kernels.ref`` (or of
 encode or training step tiles D, so the transient stays (B, H, block_d).  On a CPU tensor the
 wrappers in :mod:`repro_torch.kernels.ops` run these; on the card
 ``chip_smoke.py`` and the cuda-marked tests hold each kernel against
-them.  Everything is integer arithmetic, so agreement is exact.
+them.  Everything is integer arithmetic (or a float64 matmul of 0/1 and
+small integer operands, exact far past these sums, where torch has no
+integer matmul on a card), so agreement is exact.  The operand builders
+of kernel 7 (``unary_mxu_operands``, ``baseline_operands``) live here
+too: the kernel's wrappers and its plain version share them.
 
 uint32 arithmetic (Gray codes, raw Sobol integers) runs in int64 masked
 to 32 bits; see :mod:`repro_torch.core.unary`.
@@ -138,6 +142,99 @@ def fit_bundle_dynamic(
         x_q, labels, n_classes, d,
         lambda x, j0, w: _tile_hvs(x, direction, skip + j0, w), block_d,
     )
+
+
+#: the contraction depth of kernel 7's operands is a multiple of this
+K_ALIGN = 32
+
+
+def _k_padded(k: int) -> int:
+    return -(-k // K_ALIGN) * K_ALIGN
+
+
+def unary_mxu_operands(
+    x_q: torch.Tensor, sobol_q: torch.Tensor, levels: int
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Kernel 7's operands for the uHD table encode (the JAX package's
+    ``unary_matmul`` form): the inclusive thermometer U[b, h*levels + v]
+    = [v <= x[b, h]], (B, Kp) int8, and the one-hot of the thresholds
+    stored transposed, O[d, h*levels + v] = [S[h, d] == v], (D, Kp) int8,
+    with K = H * levels padded with zero columns to Kp, a multiple of 32.
+    ``2 * (U @ O.T) - H`` is the encode; returns (U, O, H)."""
+    b, h = x_q.shape
+    d = sobol_q.shape[-1]
+    dev = x_q.device
+    kp = _k_padded(h * levels)
+    v = torch.arange(levels, dtype=torch.int32, device=dev)
+    u = torch.zeros((b, kp), dtype=torch.int8, device=dev)
+    u[:, : h * levels].view(b, h, levels).copy_(v <= x_q.to(torch.int32)[:, :, None])
+    o = torch.zeros((d, kp), dtype=torch.int8, device=dev)
+    o[:, : h * levels].view(d, h, levels).copy_(
+        sobol_q.t().to(torch.int32)[:, :, None] == v
+    )
+    return u, o, h
+
+
+def baseline_operands(
+    x_q: torch.Tensor, p: torch.Tensor, level: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Kernel 7's operands for the baseline bind + bundle
+    ``hv[b, d] = sum_h P[h, d] * L[x[b, h], d]``: the one-hot
+    U[b, v*H + h] = [x[b, h] == v], (B, Kp) int8 (the JAX package's
+    ``baseline_encode`` layout), and O[d, v*H + h] = [P[h, d] * L[v, d] =
+    +1] = [P[h, d] == L[v, d]], (D, Kp) int8, K = (levels + 1) * H padded
+    to Kp.  Each (b, h) has exactly one v with U = 1, so the ±1 sum is
+    ``2 * (U @ O.T) - H``; returns (U, O, H)."""
+    b, h = x_q.shape
+    n_levels, d = level.shape
+    dev = x_q.device
+    k = n_levels * h
+    kp = _k_padded(k)
+    v = torch.arange(n_levels, dtype=torch.int32, device=dev)
+    u = torch.zeros((b, kp), dtype=torch.int8, device=dev)
+    u[:, :k].view(b, n_levels, h).copy_(x_q.to(torch.int32)[:, None, :] == v[None, :, None])
+    o = torch.zeros((d, kp), dtype=torch.int8, device=dev)
+    o[:, :k].view(d, n_levels, h).copy_(p.t()[:, None, :] == level.t()[:, :, None])
+    return u, o, h
+
+
+def encode_unary_mxu(
+    u: torch.Tensor, onehot_t: torch.Tensor, h: int, *, block_d: int = 2048
+) -> torch.Tensor:
+    """Binary contraction with the affine epilogue:
+    ``out[b, d] = 2 * sum_k u[b, k] * onehot_t[d, k] - h``, (B, K) 0/1 and
+    (D, K) 0/1 (the second operand stored transposed, K contiguous) ->
+    (B, D) int32.  A float64 matmul, exact while the counts stay below
+    2**53 (torch has no integer matmul on a card); D is tiled, so the
+    float64 transient is (block_d, K)."""
+    a = u.to(torch.float64)
+    cols = [
+        a @ onehot_t[j0 : j0 + block_d].to(torch.float64).t()
+        for j0 in range(0, onehot_t.shape[0], block_d)
+    ]
+    count = torch.cat(cols, dim=1) if cols else a.new_zeros((u.shape[0], 0))
+    return (2 * count.to(torch.int64) - h).to(torch.int32)
+
+
+def bundle_binarize(
+    hvs: torch.Tensor, onehot_labels: torch.Tensor, *, binarize: bool = True,
+    block_d: int = 4096,
+) -> torch.Tensor:
+    """Class bundling with the fused sign: ``sums = onehot_labels @ hvs``,
+    (C, B) 0/1 and (B, D) int -> (C, D) int8 ±1 (ties -> +1) with
+    ``binarize``, else the int32 sums.  A float64 matmul over D-tiles,
+    exact while |sums| < 2**53 (the JAX package's float32 is exact only
+    below 2**24)."""
+    oh = onehot_labels.to(torch.float64)
+    cols = [
+        oh @ hvs[:, j0 : j0 + block_d].to(torch.float64)
+        for j0 in range(0, hvs.shape[1], block_d)
+    ]
+    sums = torch.cat(cols, dim=1) if cols else oh.new_zeros((oh.shape[0], 0))
+    if binarize:
+        one = torch.ones((), dtype=torch.int8, device=hvs.device)
+        return torch.where(sums >= 0, one, -one)
+    return sums.to(torch.int64).to(torch.int32)
 
 
 def _sort_pairs(dist: torch.Tensor, idx: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -176,7 +176,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--n-train", type=int, default=1024)
     ap.add_argument("--requests", type=int, default=256)
     ap.add_argument("--batch", type=int, default=32, help="static serving batch")
-    ap.add_argument("--encoder", default="uhd", help="registered encoder (uhd | uhd_dynamic)")
+    ap.add_argument("--encoder", default="uhd",
+                    help="registered encoder (uhd | uhd_dynamic | baseline)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the kernels run on cuda, the plain versions on cpu")
     return ap

@@ -4,6 +4,8 @@
     PYTHONPATH=src python -m repro_torch.launch.train_hdc --device cpu --d 1024
     PYTHONPATH=src python -m repro_torch.launch.train_hdc --shard-map --ckpt-shards 4 \
         --save-dir /tmp/hdc
+    PYTHONPATH=src python -m repro_torch.launch.train_hdc --encoder baseline \
+        --compare-baseline --baseline-iters 5
 
 The torch counterpart of ``repro.launch.train_hdc``, with its defaults:
 create -> fit_batches (streamed, one fused training step a batch), or
@@ -11,9 +13,13 @@ with ``--shard-map`` ``partial_fit_sharded`` a batch over ``mesh_for()``
 (every visible card, or the CPU) -> evaluate (cosine ``predict``) ->
 with ``--save-dir``, save (with ``--ckpt-shards N``, as N per-host
 D-shards written from this process, then published), load and check
-the round trip.  The device is the only datapath switch: on the card
-the ``uhd`` encoder runs the CUDA kernels ``fit_bundle`` and
-``encode_bundle``, on the CPU their plain versions.
+the round trip.  ``--compare-baseline`` then runs the paper's baseline
+protocol (``baseline_iterative_search``): ``--baseline-iters`` full
+retrains of the ``baseline`` encoder with seeds 0, 1, ..., printing the
+average and best accuracy.  The device is the only datapath switch: on
+the card the ``uhd`` encoder runs the CUDA kernels ``fit_bundle`` and
+``encode_bundle``, ``baseline`` the kernels ``encode_unary_mxu`` and
+``bundle_binarize``; on the CPU their plain versions run.
 """
 
 from __future__ import annotations
@@ -22,10 +28,17 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.core import HDCConfig, HDCModel, ShardedHDCModel, partial_fit_sharded
+from repro_torch.core import (
+    HDCConfig,
+    HDCModel,
+    ShardedHDCModel,
+    baseline_iterative_search,
+    partial_fit_sharded,
+)
 from repro_torch.core.hdc_model import resolve_device
 from repro_torch.data import load_dataset
 from repro_torch.distributed.sharding import set_current_mesh
@@ -39,6 +52,8 @@ class TrainResult:
     fit_s: float  # fit_batches wall seconds, synchronised
     eval_s: float  # evaluate wall seconds
     round_trip_ok: bool | None  # None without --save-dir
+    baseline_accs: list[float] = dataclasses.field(default_factory=list)
+    baseline_models: list[HDCModel] = dataclasses.field(default_factory=list)
 
 
 def _sync(device: torch.device) -> None:
@@ -98,7 +113,22 @@ def train(args) -> TrainResult:
         )
         shard_note = f", {args.ckpt_shards} host shards" if args.ckpt_shards > 1 else ""
         print(f"checkpointed to {args.save_dir} (round-trip ok: {ok}{shard_note})")
-    return TrainResult(model, acc, t1 - t0, t2 - t1, ok)
+    result = TrainResult(model, acc, t1 - t0, t2 - t1, ok)
+
+    if args.compare_baseline:
+        t0 = time.perf_counter()
+        result.baseline_accs = baseline_iterative_search(
+            cfg, ds.train_images, ds.train_labels, ds.test_images, ds.test_labels,
+            iterations=args.baseline_iters, batch_size=args.batch_size, device=device,
+            on_model=lambda i, m: result.baseline_models.append(m),
+        )
+        accs = result.baseline_accs
+        print(
+            f"baseline HDC over i=1..{args.baseline_iters}: "
+            f"avg {np.mean(accs):.4f} best {np.max(accs):.4f} "
+            f"({time.perf_counter() - t0:.1f}s, {args.baseline_iters} full retrains)"
+        )
+    return result
 
 
 def parser() -> argparse.ArgumentParser:
@@ -108,7 +138,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--levels", type=int, default=16)
     ap.add_argument("--n-train", type=int, default=4096)
     ap.add_argument("--n-test", type=int, default=1024)
-    ap.add_argument("--encoder", default="uhd", help="registered encoder (uhd | uhd_dynamic)")
+    ap.add_argument("--encoder", default="uhd",
+                    help="registered encoder (uhd | uhd_dynamic | baseline)")
     ap.add_argument("--batch-size", type=int, default=2048)
     ap.add_argument(
         "--shard-map", action="store_true",
@@ -121,6 +152,10 @@ def parser() -> argparse.ArgumentParser:
         help="with --save-dir: write the checkpoint as N per-host D-shards "
              "(simulated hosts in this process) and verify the stitched restore",
     )
+    ap.add_argument("--compare-baseline", action="store_true",
+                    help="then retrain the baseline encoder --baseline-iters times "
+                         "(seeds 0, 1, ...) and print its average and best accuracy")
+    ap.add_argument("--baseline-iters", type=int, default=5)
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="the kernels run on cuda, the plain versions on cpu")
     return ap

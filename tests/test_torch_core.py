@@ -178,7 +178,8 @@ def test_config_validation_and_manifest_backend_names():
     with pytest.raises(ValueError, match="power of two"):
         HDCConfig(n_features=4, n_classes=2, levels=12, encoder="uhd_dynamic")
     with pytest.raises(ValueError, match="unknown encoder"):
-        HDCConfig(n_features=4, n_classes=2, encoder="baseline")  # not ported yet
+        HDCConfig(n_features=4, n_classes=2, encoder="no_such_encoder")
+    HDCConfig(n_features=4, n_classes=2, encoder="baseline")  # ported: constructs
     with pytest.raises(ValueError, match="unknown backend 'pallas'"):
         HDCConfig(n_features=4, n_classes=2, encoder="uhd_dynamic", backend="pallas")
     cfg = HDCConfig(n_features=4, n_classes=2, encoder="uhd_dynamic", backend="cuda")
@@ -235,6 +236,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.core.item_memory, repro_torch.core.encoders\n"
         "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
         "import repro_torch.serving.execution, repro_torch.checkpoint.manager\n"
+        "import repro_torch.core.prng\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -234,10 +234,12 @@ def test_cuda_launch_counters_count_kernel_launches(cuda):
     table = torch.from_numpy(tsobol.sobol_table_for_features(49, 64, 16).astype(np.int8)).to(cuda)
     tops.encode_bundle(xt, table)
     tops.fit_bundle(xt, table, lt, 10)
+    hv = tops.encode_unary_mxu(xt, table, 16)
+    tops.bundle_binarize(hv, lt, 10)
     assert tops.LAUNCHES == {
         "encode_bundle": 1, "fit_bundle": 1,
         "encode_bundle_dynamic": 2, "fit_bundle_dynamic": 1, "hamming_topk": 1,
-        "hamming_packed": 1,
+        "hamming_packed": 1, "encode_unary_mxu": 1, "bundle_binarize": 1,
     }
     # plain versions on the CPU launch nothing
     tops.encode_bundle_dynamic(torch.from_numpy(x), torch.from_numpy(dirs), 64)
