@@ -311,8 +311,46 @@ MAIN_SHAPE = {
 }
 
 
+# device time and bound of each kernel by the wrapper's shape key (ops.LAUNCH_SHAPES), and
+# the launches of each path by shape key
+BY_KEY: dict[str, dict[str, dict]] = {}
+PATH_SHAPES: dict[str, dict[str, dict[str, int]]] = {}
+
+
 def emit(phase: str, **fields) -> None:
     print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def launch_key(torch, ops, name: str, fn) -> str:
+    """The shape key that kernel `name`'s wrapper records for one call of fn."""
+    ops.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    (key,) = ops.LAUNCH_SHAPES[name]
+    return key
+
+
+def sass_counts(_build) -> dict[str, dict[str, int]]:
+    """Tensor-core instructions in the built library's SASS (``cuobjdump
+    -sass``), by kernel source: warpgroup MMA (the ``*GMMA`` family,
+    ``IGMMA`` for integers) and ``IMMA`` (what ``mma.sync`` on integers
+    compiles to)."""
+    cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
+    lib = _build.BUILD_ROOT / _build.source_hash() / "libuhd_kernels.so"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts: dict[str, dict[str, int]] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            fn = next((k for k in ("encode_unary_mxu", "encode_bundle", "hamming_topk",
+                                   "hamming_packed", "bundle_binarize") if k in name), "other")
+            counts.setdefault(fn, {"GMMA": 0, "IGMMA": 0, "IMMA": 0})
+        elif fn is not None:
+            for op in ("GMMA", "IGMMA", "IMMA"):
+                counts[fn][op] += f"{op}." in line or f"{op} " in line
+    return counts
 
 
 def time_ms(torch, fn, iters: int) -> float:
@@ -329,11 +367,12 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int):
+def device_ms(torch, fn, iters: int, rows: list | None = None):
     """Device time per call of fn: the self time of the kernels and copies
     it ran, summed over `iters` calls under ``torch.profiler``.  Unlike
     ``time_ms`` it leaves out the host's share of a call, which is what a
-    launch-bound kernel's event time measures."""
+    launch-bound kernel's event time measures.  With `rows`, appends each
+    device row's name and ms a call to it."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -342,8 +381,12 @@ def device_ms(torch, fn, iters: int):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    found = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    if rows is not None:
+        rows.extend({"name": k[:70], "ms": t / iters / 1e3}
+                    for k, t in sorted(found, key=lambda r: -r[1]))
+    total_us = sum(t for _, t in found)
     return total_us / iters / 1e3 if total_us else "not measured"
 
 
@@ -397,7 +440,9 @@ def library_packed_int_mm(torch, results, got, bits_q, bits_r, shape) -> None:
 
 
 def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dict]:
-    """Each kernel against its plain version; times at the serving shapes."""
+    """Each kernel against its plain version; times at the main paths' shapes."""
+    import numpy as np
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     results: dict[str, dict] = {}
@@ -405,14 +450,15 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
     def rand_x(b, h, levels=16):
         return torch.randint(0, levels + 1, (b, h), generator=gen, device=dev, dtype=torch.int32)
 
-    def direction(h, levels=16):
-        return torch.from_numpy(sobol.quantized_direction_matrix(h, levels, seed=0)).to(dev)
+    def direction(h, levels=16, dtype=None):
+        dirs = sobol.quantized_direction_matrix(h, levels, seed=0)
+        return torch.from_numpy(dirs.astype(dtype or dirs.dtype)).to(dev)
 
     def table(h, d, levels=16):
         t = sobol.sobol_table_for_features(h, d, levels, seed=0)
         return torch.from_numpy(t.astype("int8" if levels <= 127 else "int32")).to(dev)
 
-    def check(name, got, want, shape, timed=None):
+    def check(name, got, want, shape, timed=None, direct_ops=None):
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
@@ -424,20 +470,28 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         if timed is not None:
             kernel_fn, plain_fn, n_bytes, n_ops, *rate = timed
             ms = time_ms(torch, kernel_fn, 50)
-            dev_ms = device_ms(torch, kernel_fn, 20)
+            rows: list = []
+            dev_ms = device_ms(torch, kernel_fn, 20, rows)
             plain = time_ms(torch, plain_fn, 3)
             b_ms, b_by = bound_ms(n_bytes, n_ops, *rate)
             share = b_ms / dev_ms if isinstance(dev_ms, float) else "not measured"
-            emit("kernel_time", kernel=name, shape=shape, ms=ms, device_ms=dev_ms,
-                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, bound_share=share)
+            extra = {}
+            if direct_ops is not None:  # the direct form's count: 2*B*H*D compares, B*D adds
+                extra["bound_ms_direct_form"] = bound_ms(n_bytes, direct_ops)[0]
+            key = launch_key(torch, ops, name, kernel_fn)
+            emit("kernel_time", kernel=name, shape=shape, key=key, ms=ms, device_ms=dev_ms,
+                 plain_ms=plain, bound_ms=b_ms, bound_by=b_by, bound_share=share,
+                 device_rows=rows[:4], **extra)
             r.setdefault("timed", {})[json.dumps(shape, sort_keys=True)] = dict(
                 ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                bound_share=share, shape=shape,
+                bound_share=share, shape=shape, key=key, **extra,
             )
+            BY_KEY.setdefault(name, {})[key] = dict(device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)
 
     # -- encode_bundle: the serving batch, then ragged cases, one with an int32
     #    table (levels=256) ---------------------------------------------------
-    for b, h, d, levels in [(64, 784, 8192, 16), (37, 100, 1000, 16), (33, 113, 257, 256)]:
+    for b, h, d, levels in [(64, 784, 8192, 16), (64, 784, 2048, 16), (64, 784, 2040, 16),
+                            (37, 100, 1000, 16), (33, 113, 257, 256)]:
         x, tab = rand_x(b, h, levels), table(h, d, levels)
         k_fn = lambda: ops.encode_bundle(x, tab)  # noqa: E731
         p_fn = lambda: ref.encode_bundle(x, tab)  # noqa: E731
@@ -447,12 +501,13 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         n_bytes = b * h * 4 + h * d * tab.element_size() + b * d * 4
         check("encode_bundle", [got], [p_fn()], shape,
               (k_fn, p_fn, n_bytes, 2 * b * h * d) if b == 64 else None)
-        if b == 64:
+        if b == 64 and d == 8192:
             library_int_mm(torch, results, got, x, tab, levels, shape)
 
     # -- fit_bundle: the smoke's fit batch, train_hdc's batch, then ragged with
     #    bad labels -----------------------------------------------------------
-    for b, h, d, c in [(512, 784, 8192, 10), (2048, 784, 8192, 10), (37, 100, 1000, 10)]:
+    for b, h, d, c in [(512, 784, 8192, 10), (2048, 784, 8192, 10), (256, 784, 2048, 10),
+                       (256, 784, 2040, 10), (37, 100, 1000, 10)]:
         x, tab = rand_x(b, h), table(h, d)
         labels = torch.randint(0, c, (b,), generator=gen, device=dev, dtype=torch.int32)
         if b == 37:
@@ -463,12 +518,15 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         got = k_fn()
         torch.cuda.synchronize()
         n_bytes = b * h * 4 + h * d * tab.element_size() + b * 4 + c * d * 4
+        # the class-sum form's work: B*H histogram counts and C*H*D gather-adds
         check("fit_bundle", [got], [p_fn()], dict(B=b, H=h, D=d, C=c, table="int8"),
-              (k_fn, p_fn, n_bytes, 2 * b * h * d + b * d) if b != 37 else None)
+              (k_fn, p_fn, n_bytes, b * h + c * h * d) if b != 37 else None,
+              direct_ops=2 * b * h * d + b * d)
 
     # -- encode_bundle_dynamic: the serving batch, then ragged cases, one with
     #    8-bit thresholds (levels=256) --------------------------------------
-    for b, h, d, skip, levels in [(64, 784, 8192, 1, 16), (37, 100, 1000, 1000, 16),
+    for b, h, d, skip, levels in [(64, 784, 8192, 1, 16), (64, 784, 2048, 1 + 2048, 16),
+                                  (64, 784, 2040, 1 + 2040, 16), (37, 100, 1000, 1000, 16),
                                   (33, 113, 257, 0, 256)]:
         x, dirs = rand_x(b, h, levels), direction(h, levels)
         k_fn = lambda: ops.encode_bundle_dynamic(x, dirs, d, skip=skip)  # noqa: E731
@@ -480,21 +538,41 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
               dict(B=b, H=h, D=d, skip=skip, levels=levels),
               (k_fn, p_fn, n_bytes, 2 * b * h * d) if b == 64 else None)
 
-    # -- fit_bundle_dynamic: the fit batches, then ragged with bad labels ----
-    for b, h, d, c, skip in [(512, 784, 8192, 10, 1), (4096, 784, 8192, 10, 1),
-                             (37, 100, 1000, 10, 1000)]:
-        x, dirs = rand_x(b, h), direction(h)
+    # -- fit_bundle_dynamic: the fit batches and the D-shard batches on the
+    #    histogram path; the smoke's batch on the direct path (the same
+    #    direction entries as uint16); then ragged, with labels -1 and C, x
+    #    outside [0, T), 8-bit thresholds, C = 26, skips near 2**32, and the
+    #    direct path at C = 50 and with uint16 entries (levels = 1024) ------
+    for b, h, d, c, skip, levels, wide in [
+        (512, 784, 8192, 10, 1, 16, False), (4096, 784, 8192, 10, 1, 16, False),
+        (256, 784, 2048, 10, 1 + 2048, 16, False), (256, 784, 2040, 10, 1 + 2040, 16, False),
+        (512, 784, 8192, 10, 1, 16, True), (37, 100, 1000, 10, 1000, 16, False),
+        (33, 113, 257, 26, 2**32 - 3, 256, False), (65, 30, 130, 10, 2**32 - 100, 16, False),
+        (37, 100, 1000, 50, 1000, 16, False), (33, 113, 257, 10, 5, 1024, False),
+    ]:
+        x, dirs = rand_x(b, h, levels), direction(h, levels, "uint16" if wide else None)
         labels = torch.randint(0, c, (b,), generator=gen, device=dev, dtype=torch.int32)
-        if b == 37:
+        if b < 256:
             labels[::5] = -1  # out of range: contributes nothing, written nowhere
             labels[2::7] = c
+            x[1::3, ::4] = torch.randint(-2**31, 2**31 - 1, x[1::3, ::4].shape, generator=gen,
+                                         device=dev, dtype=torch.int32)  # any int32 x
         k_fn = lambda: ops.fit_bundle_dynamic(x, dirs, labels, c, d, skip=skip)  # noqa: E731
         p_fn = lambda: ref.fit_bundle_dynamic(x, dirs, labels, c, d, skip=skip)  # noqa: E731
         got = k_fn()
         torch.cuda.synchronize()
-        n_bytes = b * h * 4 + h * 32 + b * 4 + c * d * 4
-        check("fit_bundle_dynamic", [got], [p_fn()], dict(B=b, H=h, D=d, C=c, skip=skip),
-              (k_fn, p_fn, n_bytes, 2 * b * h * d + b * d) if b != 37 else None)
+        path = ops.fit_dynamic_path(dirs.dtype, h, c)
+        n_bytes = b * h * 4 + h * 32 * dirs.element_size() + b * 4 + c * d * 4
+        # the histogram form's work: B*H counts, C*H*D gather-adds and H*D*nb
+        # threshold popcounts, nb the bits this direction matrix uses
+        nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
+        check("fit_bundle_dynamic", [got], [p_fn()],
+              dict(B=b, H=h, D=d, C=c, skip=skip, **({"path": path} if path != "histogram" else {})),
+              (k_fn, p_fn, n_bytes, b * h + c * h * d + h * d * nb) if b >= 256 else None,
+              direct_ops=2 * b * h * d + b * d)
+        want_path = "histogram" if dirs.dtype == torch.uint8 and c <= 48 else "direct"
+        if path != want_path:
+            raise AssertionError(f"fit_bundle_dynamic took the {path} path, not {want_path}")
 
     # -- hamming_topk: predict (k=1), a 64 MiB store, crafted ties at k=C ----
     for b, c, d, k in [(64, 10, 8192, 1), (64, 65536, 8192, 8), (16, 1000, 1000, 1000)]:
@@ -541,24 +619,28 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
 
     # -- encode_unary_mxu: the uhd table encode's operands at the serving batch
     #    (also equal to encode_bundle's output), the baseline encoder's at the
-    #    serving and training batches, then ragged ---------------------------
+    #    serving, evaluate and training batches, then ragged (B, D and K not a
+    #    multiple of a tile) ---------------------------------------------------
     levels = 16
     p_base, l_base = (t.to(dev) for t in encoding.make_baseline_codebooks(
         prng.prng_key(0), 784, 8192, levels))
-    for b, kind in [(64, "uhd"), (64, "baseline"), (2048, "baseline"), (5, "ragged")]:
+    for b, kind in [(64, "uhd"), (64, "baseline"), (1024, "baseline"), (2048, "baseline"),
+                    (5, "ragged"), (65, "ragged"), (2000, "ragged")]:
+        op_fn = None
         if kind == "uhd":
             x, tab = rand_x(b, 784, levels), table(784, 8192, levels)
             build = lambda: ref.unary_mxu_operands(x, tab, levels)  # noqa: E731
             op_fn = lambda: ops.encode_unary_mxu(x, tab, levels)  # noqa: E731
         elif kind == "baseline":
             x = rand_x(b, 784, levels)
-            build = lambda: ref.baseline_operands(x, p_base, l_base)  # noqa: E731
+            build = lambda: encoding.baseline_operands(x, p_base, l_base)  # noqa: E731
             op_fn = lambda: ops.encode_unary_mxu_operands(*build())  # noqa: E731
         else:
-            u0 = (torch.rand((5, 1600), generator=gen, device=dev) < 0.3).to(torch.int8)
-            o0 = (torch.rand((700, 1600), generator=gen, device=dev) < 0.5).to(torch.int8)
+            # odd D (single stores), ragged B, D and K on the narrow and the wide tiles
+            kk, d = {5: (1600, 701), 65: (1728, 8160), 2000: (13248, 8160)}[b]
+            u0 = (torch.rand((b, kk), generator=gen, device=dev) < 0.3).to(torch.int8)
+            o0 = (torch.rand((d, kk), generator=gen, device=dev) < 0.5).to(torch.int8)
             build = lambda: (u0, o0, 784)  # noqa: E731
-            op_fn = None
         u, o, h = build()
         k_fn = lambda: ops.encode_unary_mxu_operands(u, o, h)  # noqa: E731
         p_fn = lambda: ref.encode_unary_mxu(u, o, h)  # noqa: E731
@@ -577,14 +659,31 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
                                                INT8_TC_OPS_PER_S)
         check("encode_unary_mxu", [got] * len(want), want, shape, timed)
         if timed:
-            library_unary_int_mm(torch, results, got, u, o, h, shape)
+            t = results["encode_unary_mxu"]["timed"][json.dumps(shape, sort_keys=True)]
+            if b in (64, 2048):
+                library_unary_int_mm(torch, results, got, u, o, h, shape)
             op_ms = time_ms(torch, op_fn, 20)
-            build_ms = time_ms(torch, build, 20)
-            emit("op_time", kernel="encode_unary_mxu", shape=shape, op_ms=op_ms,
-                 operand_build_ms=build_ms, kernel_ms=results["encode_unary_mxu"]["timed"][
-                     json.dumps(shape, sort_keys=True)]["ms"])
-            results["encode_unary_mxu"]["timed"][json.dumps(shape, sort_keys=True)].update(
-                op_ms=op_ms, operand_build_ms=build_ms)
+            if kind == "uhd":
+                times = dict(op_ms=op_ms, operand_build_ms=time_ms(torch, build, 20))
+            else:
+                # the whole op with O from the cache (as every call after a model's
+                # first), with O built first (as a model's first call), and the two
+                # operand builds alone
+                def first():
+                    encoding.BASELINE_OPERANDS.clear()
+                    op_fn()
+
+                times = dict(
+                    op_ms=op_ms, op_first_build_ms=time_ms(torch, first, 5),
+                    u_build_ms=time_ms(torch, lambda: ref.baseline_onehot_u(x, levels + 1), 20),
+                    o_build_ms=time_ms(torch, lambda: ref.baseline_onehot_t(p_base, l_base), 5),
+                    op_device_ms=device_ms(torch, op_fn, 10),
+                )
+            emit("op_time", kernel="encode_unary_mxu", shape=shape, kernel_ms=t["ms"],
+                 kernel_device_ms=t["device_ms"], **times)
+            t.update(times)
+            if b == 2048:  # the tensor cores' heaviest load of the run
+                t["sustained_ms"] = sustained(torch, k_fn, shape, 2500)["ms"]
 
     # -- bundle_binarize: train_hdc's batch, the smoke's, then ragged with an
     #    out-of-range label; both modes ---------------------------------------
@@ -606,6 +705,43 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
             if timed and not binarize:
                 library_index_add(torch, results, got, hv, labels, c, shape)
     return results
+
+
+def sustained(torch, fn, shape, calls: int) -> dict:
+    """`calls` back-to-back calls of fn (about a second), timed by CUDA events,
+    with ``nvidia-smi`` sampling the SM clock and the power draw every 50 ms
+    beside them: a launch's time under sustained load, where the card may lower
+    its clock to stay inside its power limit."""
+    fn()
+    torch.cuda.synchronize()
+    smi = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+    )
+    time.sleep(0.3)  # a few samples before the load
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    time.sleep(0.1)
+    smi.terminate()
+    out, _ = smi.communicate(timeout=30)
+    samples = []
+    for line in out.splitlines():
+        try:
+            samples.append([float(v) for v in line.split(",")])
+        except ValueError:
+            continue
+    result = dict(shape=shape, calls=calls, ms=start.elapsed_time(end) / calls, load_s=load_s,
+                  samples=samples)
+    emit("sustained", **result)
+    return result
 
 
 def library_unary_int_mm(torch, results, got, u, o, h, shape) -> None:
@@ -649,6 +785,7 @@ def path_launches(ops, name: str, kernels: tuple[str, ...], fn, absent: tuple[st
     out = fn()
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
+    PATH_SHAPES[name] = {k: dict(v) for k, v in ops.LAUNCH_SHAPES.items()}
     emit("launches", path=name, launches=launches)
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
@@ -753,15 +890,23 @@ def train_baseline_phase(torch, ops, train_hdc, load_dataset):
     rule), and the checkpoint round trip."""
     import numpy as np
 
+    from repro_torch.core import encoding
+
     args = train_hdc.parser().parse_args([
         "--device", "cuda", "--encoder", "baseline", "--compare-baseline",
         "--baseline-iters", "5", "--save-dir", str(ROOT / "build" / "chip_smoke_train_baseline"),
     ])
+    builds0 = encoding.BASELINE_OPERANDS.builds
     result, launches = path_launches(
         ops, "train_baseline", ("encode_unary_mxu", "bundle_binarize"),
         lambda: train_hdc.train(args),
         ("encode_bundle", "fit_bundle", "encode_bundle_dynamic", "fit_bundle_dynamic"),
     )
+    # [P == L] is built once per model: the seed-0 model and the five retrains
+    builds = encoding.BASELINE_OPERANDS.builds - builds0
+    emit("operand_cache", path="train_baseline", models=6, builds=builds)
+    if builds != 6:
+        raise AssertionError(f"train_baseline built [P == L] {builds} times for 6 models")
     ds = load_dataset(args.dataset, n_train=args.n_train, n_test=args.n_test)
     runs = [("train", 0, result.model, result.accuracy)] + [
         ("retrain", i, m, a) for i, (m, a) in
@@ -963,6 +1108,107 @@ def train_shard_map_phase(torch, ops, train_hdc):
     return launches
 
 
+def parse_key(key: str) -> dict:
+    """``"B=64 H=784 table=int8"`` -> {"B": 64, "H": 784, "table": "int8"}."""
+    out = {}
+    for part in key.split():
+        k, v = part.split("=", 1)
+        out[k] = int(v) if v.lstrip("-").isdigit() else v
+    return out
+
+
+def shape_case(torch, ops, sobol, name: str, key: str, gen):
+    """Random inputs at a launched shape (levels 16 where the key does not say
+    otherwise, as every path here runs), the call, and the bytes and operations
+    its bound counts (as kernel_phase counts them): for a device time where
+    kernel_phase timed none.  Returns (fn, bytes, ops, rate args)."""
+    import numpy as np
+
+    k, dev = parse_key(key), torch.device("cuda")
+    i32 = dict(generator=gen, device=dev, dtype=torch.int32)
+
+    def rand_x(levels):
+        return torch.randint(0, levels + 1, (k["B"], k["H"]), **i32)
+
+    if name in ("encode_bundle", "fit_bundle"):
+        b, h, d = k["B"], k["H"], k["D"]
+        levels = 16 if k["table"] == "int8" else 256
+        t = sobol.sobol_table_for_features(h, d, levels, seed=0)
+        tab, x = torch.from_numpy(t.astype(k["table"])).to(dev), rand_x(levels)
+        if name == "encode_bundle":
+            return (lambda: ops.encode_bundle(x, tab)), b * h * 4 + h * d * tab.element_size() \
+                + b * d * 4, 2 * b * h * d, ()
+        c = k["C"]
+        lab = torch.randint(0, c, (b,), **i32)
+        return (lambda: ops.fit_bundle(x, tab, lab, c)), b * h * 4 + h * d * tab.element_size() \
+            + b * 4 + c * d * 4, b * h + c * h * d, ()
+    if name in ("encode_bundle_dynamic", "fit_bundle_dynamic"):
+        b, h, d = k["B"], k["H"], k["D"]
+        levels = {"uint8": 16, "uint16": 1024, "uint32": 2**17}[k["dir"]]
+        dirs = torch.from_numpy(sobol.quantized_direction_matrix(h, levels, seed=0)).to(dev)
+        x, es = rand_x(levels), dirs.element_size()
+        if name == "encode_bundle_dynamic":
+            return (lambda: ops.encode_bundle_dynamic(x, dirs, d)), b * h * 4 + h * 32 * es \
+                + b * d * 4, 2 * b * h * d, ()
+        c = k["C"]
+        lab = torch.randint(0, c, (b,), **i32)
+        nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
+        return (lambda: ops.fit_bundle_dynamic(x, dirs, lab, c, d)), b * h * 4 + h * 32 * es \
+            + b * 4 + c * d * 4, b * h + c * h * d + h * d * nb, ()
+    if name in ("hamming_topk", "hamming_packed"):
+        b, c, w = k["B"], k["C"], k["W"]
+        q = torch.randint(-2**31, 2**31 - 1, (b, w), **i32)
+        rows = torch.randint(-2**31, 2**31 - 1, (c, w), **i32)
+        if name == "hamming_topk":
+            return (lambda: ops.hamming_topk(q, rows, 32 * w, k["k"])), b * w * 4 + c * w * 4 \
+                + 2 * b * k["k"] * 4, 3 * b * c * w, ()
+        return (lambda: ops.hamming_packed(q, rows, 32 * w)), (b * w + c * w + b * c) * 4, \
+            3 * b * c * w, ()
+    if name == "encode_unary_mxu":
+        b, kk, d = k["B"], k["K"], k["D"]
+        u = (torch.rand((b, kk), generator=gen, device=dev) < 0.06).to(torch.int8)
+        o = (torch.rand((d, kk), generator=gen, device=dev) < 0.5).to(torch.int8)
+        return (lambda: ops.encode_unary_mxu_operands(u, o, 784)), b * kk + d * kk + b * d * 4, \
+            2 * b * kk * d, (INT8_TC_OPS_PER_S,)
+    if name == "bundle_binarize":
+        b, c, d, binarize = k["B"], k["C"], k["D"], k["binarize"] == "True"
+        hv = torch.randint(-784, 785, (b, d), **i32)
+        lab = torch.randint(0, c, (b,), **i32)
+        return (lambda: ops.bundle_binarize(hv, lab, c, binarize=binarize)), b * d * 4 + b * 4 \
+            + c * d * (1 if binarize else 4), b * d, ()
+    raise KeyError(name)
+
+
+def lost_phase(torch, ops, sobol) -> dict[str, dict]:
+    """Each kernel's launches by shape over every path, each shape's device time
+    and bound (from kernel_phase, or timed here on random inputs at that shape),
+    and lost_ms = sum of launches x (device ms - bound ms)."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for name in KERNELS:
+        shapes: dict[str, int] = {}
+        for per_path in PATH_SHAPES.values():
+            for key, n in per_path[name].items():
+                shapes[key] = shapes.get(key, 0) + n
+        rows = []
+        for key, n in sorted(shapes.items(), key=lambda kv: -kv[1]):
+            t = BY_KEY.setdefault(name, {}).get(key)
+            if t is None:
+                fn, n_bytes, n_ops, rate = shape_case(torch, ops, sobol, name, key, gen)
+                if launch_key(torch, ops, name, fn) != key:
+                    raise AssertionError(f"{name}: the case for {key} launched another shape")
+                b_ms, b_by = bound_ms(n_bytes, n_ops, *rate)
+                t = BY_KEY[name][key] = dict(device_ms=device_ms(torch, fn, 20), bound_ms=b_ms,
+                                             bound_by=b_by)
+                emit("shape_time", kernel=name, key=key, **t)
+            lost = (n * (t["device_ms"] - t["bound_ms"]) if isinstance(t["device_ms"], float)
+                    else "not measured")
+            rows.append(dict(key=key, launches=n, **t, lost_ms=lost))
+        total = sum(r["lost_ms"] for r in rows if isinstance(r["lost_ms"], float))
+        out[name] = dict(launches_by_shape=shapes, shapes=rows, lost_ms=total)
+    return out
+
+
 def sync(torch, dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -1048,8 +1294,12 @@ def main() -> int:
         for line in log.splitlines()
         if "Compiling entry" in line or "registers" in line or "spill" in line
     ]
+    sass = sass_counts(_build)
     emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=_build.build_info["seconds"],
-         cached=_build.build_info["cached"], ptxas=ptxas)
+         cached=_build.build_info["cached"], ptxas=ptxas, sass=sass)
+    mxu = sass.get("encode_unary_mxu", {})
+    if not (mxu.get("IGMMA", 0) > 0 and mxu.get("IMMA", 0) == 0):
+        raise AssertionError(f"encode_unary_mxu's SASS is not warpgroup MMA alone: {mxu}")
 
     results = kernel_phase(torch, ops, ref, sobol, unary, encoding, prng)
     by_path = {}
@@ -1075,10 +1325,12 @@ def main() -> int:
     by_path["train_shard_map"] = train_shard_map_phase(torch, ops, train_hdc)
     uhd_kernels = ("encode_bundle", "fit_bundle", "encode_bundle_dynamic", "fit_bundle_dynamic",
                    "hamming_packed")
+    builds0 = encoding.BASELINE_OPERANDS.builds
     by_path["slice_baseline"], result_base = slice_phase(
         torch, ops, serve_hdc, "baseline", ("encode_unary_mxu", "bundle_binarize", "hamming_topk"),
         uhd_kernels,
     )
+    emit("operand_cache", path="slice_baseline", builds=encoding.BASELINE_OPERANDS.builds - builds0)
     by_path["train_baseline"] = train_baseline_phase(torch, ops, train_hdc, load_dataset)
     probe = result_uhd.probe[:64]
     profile_phase(torch, result_dyn.engines[1], probe, "uhd_dynamic")
@@ -1087,6 +1339,7 @@ def main() -> int:
     profile_phase(torch, sharded_engines["uhd", 8192], probe, "uhd, 4 shards")
     profile_phase(torch, result_base.engines[1], probe, "baseline")
 
+    lost = lost_phase(torch, ops, sobol)
     line = []
     for name, meta in KERNELS.items():
         r = results[name]
@@ -1100,8 +1353,11 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
             "library_ms": t.get("library_ms"), "shape": t["shape"], "equal": True,
-            **({"op_ms": t["op_ms"], "operand_build_ms": t["operand_build_ms"]}
-               if "op_ms" in t else {}),
+            **{k: t[k] for k in ("bound_ms_direct_form", "op_ms", "operand_build_ms",
+                                 "op_first_build_ms", "u_build_ms", "o_build_ms", "op_device_ms")
+               if k in t},
+            "launches_by_shape": lost[name]["launches_by_shape"], "lost_ms": lost[name]["lost_ms"],
+            "by_shape": lost[name]["shapes"],
             "other_shapes": [v for k, v in r["timed"].items() if k != main],
         })
         if line[-1]["launches"] <= 0:

@@ -257,10 +257,12 @@ def _baseline_ref_encode(cfg, books, x_q):
 @register_backend("baseline", "cuda", available=_on_card)
 def _baseline_cuda_encode(cfg, books, x_q):
     """The one-hot x [P == L] product on the int8 tensor-core kernel
-    (kernel 7); its operands are built per call."""
-    from repro_torch.kernels import ops, ref as kref
+    (kernel 7): the one-hot of x built per call, [P == L] once per
+    codebook set (``encoding.BASELINE_OPERANDS``)."""
+    from repro_torch.core import encoding
+    from repro_torch.kernels import ops
 
-    return ops.encode_unary_mxu_operands(*kref.baseline_operands(x_q, books["p"], books["level"]))
+    return ops.encode_unary_mxu_operands(*encoding.baseline_operands(x_q, books["p"], books["level"]))
 
 
 @register_topk("baseline", "cuda")

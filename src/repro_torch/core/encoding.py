@@ -15,6 +15,8 @@ switch.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
@@ -126,15 +128,66 @@ def baseline_encode_naive(x_q: torch.Tensor, p: torch.Tensor, level: torch.Tenso
     return bound.sum(dim=1, dtype=torch.int32)
 
 
+class BaselineOperandCache:
+    """Kernel 7's per-model operand of the baseline, O = [P == L], (D, Kp)
+    int8 (109 MB at D = 8192), built once per codebook set and device.
+
+    O depends on the codebooks alone, and the same ``p``/``level``
+    tensors pass unchanged through ``fit``, ``partial_fit`` and every
+    predict batch (``HDCModel._with_state`` hands them on), so an entry
+    is keyed by the identity of the two tensors and rebuilt when either
+    is another tensor or was edited in place (its ``_version`` moved).
+    It lives as long as its ``p`` tensor.  O is not model state: not a
+    codebook, not in a manifest or a checkpoint.  ``builds`` counts the
+    builds."""
+
+    def __init__(self) -> None:
+        self._entries: dict[tuple[int, int], tuple] = {}
+        self.builds = 0
+
+    def get(self, p: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+        from repro_torch.kernels import ref as kref
+
+        key = (id(p), id(level))
+        stamp = (p._version, level._version, p.data_ptr(), level.data_ptr())
+        hit = self._entries.get(key)
+        if hit is not None and hit[0]() is p and hit[1]() is level and hit[2] == stamp:
+            return hit[3]
+        o = kref.baseline_onehot_t(p, level)
+        if hit is None:
+            weakref.finalize(p, self._entries.pop, key, None)
+        self._entries[key] = (weakref.ref(p), weakref.ref(level), stamp, o)
+        self.builds += 1
+        return o
+
+    def clear(self) -> None:
+        self._entries.clear()
+
+
+#: the process's cache of the baseline's O (see :class:`BaselineOperandCache`)
+BASELINE_OPERANDS = BaselineOperandCache()
+
+
+def baseline_operands(
+    x_q: torch.Tensor, p: torch.Tensor, level: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, int]:
+    """Kernel 7's operands for the baseline: the one-hot of x, built per
+    call, and the codebooks' O from :data:`BASELINE_OPERANDS`; returns
+    (U, O, H), as ``ref.baseline_operands`` does."""
+    from repro_torch.kernels import ref as kref
+
+    return kref.baseline_onehot_u(x_q, level.shape[0]), BASELINE_OPERANDS.get(p, level), p.shape[0]
+
+
 def baseline_encode(x_q: torch.Tensor, p: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
     """Baseline bind + bundle ``hv[b] = sum_h P[h] * L[x[b, h]]`` as the
     JAX package contracts it: one (B, V*H) one-hot times (V*H, D) [P*L]
     product, here in its binary form ``2 * (U @ [P == L]) - H`` (the
-    plain version of kernel 7 on ``ref.baseline_operands``), (B, H) int,
+    plain version of kernel 7 on :func:`baseline_operands`), (B, H) int,
     (H, D), (V, D) ±1 -> (B, D) int32."""
     from repro_torch.kernels import ref as kref
 
-    return kref.encode_unary_mxu(*kref.baseline_operands(x_q, p, level))
+    return kref.encode_unary_mxu(*baseline_operands(x_q, p, level))
 
 
 def bundle_by_class(hvs: torch.Tensor, labels: torch.Tensor, n_classes: int) -> torch.Tensor:

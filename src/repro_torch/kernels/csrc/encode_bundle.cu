@@ -38,6 +38,26 @@
 //     row sub-tiles, then adds it to sums with int32 atomicAdd.  Integer addition is
 //     exact in any order, so the result is deterministic.  Blocks split both D and
 //     B, which gives enough blocks to fill 132 SMs at D = 8192.
+//
+// The table-free training step over a uint8 direction matrix (thresholds in [0, 256),
+// every configuration the launchers run) takes another form, with the same integers:
+//     sums[c, d] = sum_h (2 * G[c, h, S[h, d]] - n_c),
+//     G[c, h, t] = #{b : label b = c, x[b, h] >= t},  n_c = #{b : label b = c},
+// so its work is B*H histogram counts plus C*H*D gather-adds and H*D threshold
+// generations, none of which grows with B (the direct form is 2*B*H*D compares):
+//   * hist_kernel: a block counts HIST_F features of every row into shared memory,
+//     bucketing x as clamp(x, -1, T_h - 1) with T_h = 2^(bits of row h's direction
+//     entries), so any int32 x compares as the TPU kernel compares it; labels outside
+//     [0, C) count nowhere; then suffix sums over t give G, stored (H, 256, CP) int32
+//     (CP = C rounded up to 4), and block 0 writes n_c.  It also ORs the direction
+//     entries into one word, the bits any threshold uses;
+//   * gather_kernel: one thread per output column, blocks split D and H (enough
+//     blocks for 132 SMs at D = 2048 as at 8192); per chunk of features a block
+//     stages G[h, 0..T) for every class in shared memory and the direction bit
+//     planes, then each thread generates S[h, d] once and adds the C counts of row
+//     (h, S) into registers, and writes 2 * acc - H * n_c (the H * n_c term once, by
+//     the first H-split) with int32 atomics, exact in any order.
+// The wrapper allocates G, n_c and the OR word; the kernels allocate nothing.
 // Ragged B, H and D are masked in the kernels: no padding, no correction.
 // skip is a runtime argument, taken modulo 2**32 as the TPU kernel's uint32 index.
 
@@ -307,6 +327,144 @@ void launch_fit(const int* x, const typename Src::Args& args, const int* labels,
       x, args, labels, sums, B, H, C, D, in_smem);
 }
 
+// ---------------------------------------------------------------------------
+// The histogram form of the table-free training step (uint8 direction entries).
+// ---------------------------------------------------------------------------
+
+constexpr int HIST_F = 4;             // features a histogram block counts
+constexpr int HIST_THREADS = 256;
+constexpr int T_MAX = 256;            // uint8 entries: thresholds lie in [0, 256)
+constexpr int HIST_MAX_CP = 48;       // classes (rounded up to 4) the histogram form takes
+constexpr int GATHER_SMEM_INTS = 12288;  // a 48 KB tile of G
+constexpr int GATHER_MAX_F = 128;     // features a gather chunk holds at most
+constexpr int PLANES = 8;             // bit planes of uint8 entries
+constexpr int GATHER_BLOCKS = 4 * 132;   // blocks the gather grid aims at (4 an SM)
+
+int hist_smem_bytes(int cp) { return HIST_F * (T_MAX + 1) * cp * static_cast<int>(sizeof(int)); }
+
+__global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
+    const int* __restrict__ x, const uint8_t* __restrict__ dir, const int* __restrict__ labels,
+    int* __restrict__ G, int* __restrict__ ncls, unsigned* __restrict__ dir_or, int B, int H,
+    int C, int CP) {
+  extern __shared__ int hs[];  // (HIST_F, T_MAX + 1, CP): bucket v at row v + 1, v in [-1, T)
+  __shared__ int tbits[HIST_F];
+  const int h0 = blockIdx.x * HIST_F, hn = min(HIST_F, H - h0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp < HIST_F) {  // a warp reads one direction row, lane j entry j
+    const uint32_t e = warp < hn ? dir[static_cast<long long>(h0 + warp) * 32 + lane] : 0u;
+    const uint32_t any = __reduce_or_sync(0xffffffffu, e);
+    if (lane == 0) {
+      tbits[warp] = 32 - __clz(any);  // __clz(0) == 32: a zero row has T = 1
+      if (any) atomicOr(dir_or, any);
+    }
+  }
+  for (int i = threadIdx.x; i < HIST_F * (T_MAX + 1) * CP; i += HIST_THREADS) hs[i] = 0;
+  __syncthreads();
+  for (int b = threadIdx.x; b < B; b += HIST_THREADS) {
+    const int lab = __ldg(labels + b);
+    if (lab < 0 || lab >= C) continue;  // out-of-range labels count nowhere
+    const int* xr = x + static_cast<long long>(b) * H + h0;
+    for (int f = 0; f < hn; ++f) {
+      const int v = min(max(__ldg(xr + f), -1), (1 << tbits[f]) - 1);
+      atomicAdd(&hs[(f * (T_MAX + 1) + v + 1) * CP + lab], 1);
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < hn * C; i += HIST_THREADS) {
+    const int f = i / C, c = i % C;
+    const int* cnt = hs + f * (T_MAX + 1) * CP + c;
+    int* g = G + static_cast<long long>(h0 + f) * T_MAX * CP + c;
+    int run = 0;
+    for (int t = (1 << tbits[f]) - 1; t >= 0; --t) {
+      run += cnt[(t + 1) * CP];
+      g[t * CP] = run;
+    }
+    if (blockIdx.x == 0 && f == 0) ncls[c] = run + cnt[0];  // every bucket, -1 included
+  }
+}
+
+template <int CMAX>
+__global__ void __launch_bounds__(DT) gather_kernel(
+    const uint8_t* __restrict__ dir, const int* __restrict__ G, const int* __restrict__ ncls,
+    const unsigned* __restrict__ dir_or, int* __restrict__ sums, int H, int C, int CP, int D,
+    int h_per_block, long long skip) {
+  extern __shared__ int4 gs4[];  // a chunk of G: (features, T, CP)
+  __shared__ uint32_t planes[GATHER_MAX_F][PLANES];
+  const int* gs = reinterpret_cast<const int*>(gs4);
+  const int col = blockIdx.x * DT + threadIdx.x;
+  const int hb0 = blockIdx.y * h_per_block, hb1 = min(H, hb0 + h_per_block);
+  const int nb = 32 - __clz(*dir_or);  // threshold bits any row uses, <= 8
+  const int T = 1 << nb, row4 = T * CP / 4;  // int4 of one feature's G
+  const int fchunk = min(GATHER_MAX_F, GATHER_SMEM_INTS / (T * CP));
+  const uint32_t idx = static_cast<uint32_t>(skip + col);  // modulo 2**32
+  const uint32_t gray = idx ^ (idx >> 1);
+  int acc[CMAX];
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c) acc[c] = 0;
+  for (int f0 = hb0; f0 < hb1; f0 += fchunk) {
+    const int fn = min(fchunk, hb1 - f0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int f = threadIdx.x; f < fn; f += DT) {  // bit m of the 32 entries of a row
+      const uint8_t* row = dir + static_cast<long long>(f0 + f) * 32;
+      uint32_t p[PLANES] = {};
+      for (int j = 0; j < 32; ++j) {
+        const uint32_t e = row[j];
+#pragma unroll
+        for (int m = 0; m < PLANES; ++m) p[m] |= ((e >> m) & 1u) << j;
+      }
+#pragma unroll
+      for (int m = 0; m < PLANES; ++m) planes[f][m] = p[m];
+    }
+    for (int i = threadIdx.x; i < fn * row4; i += DT) {
+      const int f = i / row4;
+      gs4[i] = __ldg(reinterpret_cast<const int4*>(G + static_cast<long long>(f0 + f) * T_MAX * CP) +
+                     (i - f * row4));
+    }
+    __syncthreads();
+    for (int f = 0; f < fn; ++f) {
+      uint32_t s = 0;
+#pragma unroll 4
+      for (int m = 0; m < nb; ++m) s |= static_cast<uint32_t>(__popc(planes[f][m] & gray) & 1) << m;
+      const int4* g = reinterpret_cast<const int4*>(gs + (f * T + static_cast<int>(s)) * CP);
+#pragma unroll
+      for (int q = 0; q < CMAX / 4; ++q) {
+        if (4 * q < C) {  // uniform over the block
+          const int4 v = g[q];
+          acc[4 * q] += v.x;
+          acc[4 * q + 1] += v.y;
+          acc[4 * q + 2] += v.z;
+          acc[4 * q + 3] += v.w;
+        }
+      }
+    }
+  }
+  if (col >= D) return;
+#pragma unroll
+  for (int c = 0; c < CMAX; ++c) {
+    if (c >= C) break;
+    const int v = 2 * acc[c] - (blockIdx.y == 0 ? H * __ldg(ncls + c) : 0);
+    atomicAdd(sums + static_cast<long long>(c) * D + col, v);
+  }
+}
+
+template <int CMAX>
+int launch_gather(const uint8_t* dir, const int* G, const int* ncls, const unsigned* dir_or,
+                  int* sums, int H, int C, int CP, int D, long long skip, cudaStream_t s) {
+  const int smem = GATHER_SMEM_INTS * static_cast<int>(sizeof(int));
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gather_kernel<CMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  // split H so the grid holds about GATHER_BLOCKS blocks, at least 8 features a block
+  const int col_blocks = (D + DT - 1) / DT;
+  int splits = (GATHER_BLOCKS + col_blocks - 1) / col_blocks;
+  splits = max(1, min(splits, (H + 7) / 8));
+  const int per = (H + splits - 1) / splits;
+  splits = (H + per - 1) / per;
+  gather_kernel<CMAX><<<dim3(col_blocks, splits), DT, smem, s>>>(dir, G, ncls, dir_or, sums, H,
+                                                                 C, CP, D, per, skip);
+  return static_cast<int>(cudaGetLastError());
+}
+
 int table_vec(const void* tab, int tab_bytes, int D) {
   return (static_cast<long long>(D) * tab_bytes) % 16 == 0 &&
          reinterpret_cast<uintptr_t>(tab) % 16 == 0;
@@ -359,6 +517,31 @@ int uhd_fit_bundle_dynamic(const int* x, const void* dir, int dir_bytes, const i
                            void* stream) {
   launch_fit<Generated>(x, {dir, dir_bytes, skip}, labels, sums, B, H, C, D, stream);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The histogram form of uhd_fit_bundle_dynamic, for a uint8 direction matrix and
+// C <= HIST_MAX_CP classes: x (B, H) int32, dir (H, 32) uint8, labels (B,) int32,
+// sums (C, D) int32 zeroed by the caller; scratch from the caller: G (H, 256, CP) int32
+// with CP = C rounded up to 4 (written before it is read), ncls (C,) int32, dir_or one
+// uint32 set to 0.  Two launches on `stream`.  Returns cudaGetLastError().
+int uhd_fit_bundle_dynamic_hist(const int* x, const void* dir, const int* labels, int* sums,
+                                int* G, int* ncls, unsigned* dir_or, int B, int H, int C, int D,
+                                long long skip, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int CP = (C + 3) / 4 * 4;
+  if (C <= 0 || CP > HIST_MAX_CP) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());  // sums stay 0
+  const int hsm = hist_smem_bytes(CP);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hsm);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const uint8_t* d8 = static_cast<const uint8_t*>(dir);
+  hist_kernel<<<(H + HIST_F - 1) / HIST_F, HIST_THREADS, hsm, s>>>(x, d8, labels, G, ncls, dir_or,
+                                                                  B, H, C, CP);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (CP <= 16) return launch_gather<16>(d8, G, ncls, dir_or, sums, H, C, CP, D, skip, s);
+  return launch_gather<HIST_MAX_CP>(d8, G, ncls, dir_or, sums, H, C, CP, D, skip, s);
 }
 
 }  // extern "C"

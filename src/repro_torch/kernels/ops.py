@@ -6,11 +6,15 @@ nothing else: a CPU tensor runs the plain version in
 kernel (built on first use by :mod:`repro_torch.kernels._build`) or the
 call raises.  There is no fallback from one to the other.
 
-``LAUNCHES`` counts, per wrapper, the calls that launched its kernel;
-``chip_smoke.py`` zeroes it before driving each path and reads it
-after, to show that the path ran through the kernels.  One call of
-``hamming_topk`` is one scan launch plus its merge passes, and one call
-of ``hamming_packed`` one launch per 1,048,560 rows; each counts as one.
+``LAUNCHES`` counts, per wrapper, the calls that launched its kernel,
+and ``LAUNCH_SHAPES`` the same calls by the shape they ran at (a short
+``"B=64 H=784 D=8192 ..."`` key); ``chip_smoke.py`` zeroes both before
+driving each path and reads them after, to show that the path ran
+through the kernels and to price each shape's launches.  One call of
+``hamming_topk`` is one scan launch plus its merge passes, one call of
+``hamming_packed`` one launch per 1,048,560 rows, and one call of
+``fit_bundle_dynamic`` on its histogram path a histogram and a gather
+launch; each counts as one.
 """
 
 from __future__ import annotations
@@ -31,11 +35,18 @@ LAUNCHES: dict[str, int] = {
     "encode_unary_mxu": 0,
     "bundle_binarize": 0,
 }
+LAUNCH_SHAPES: dict[str, dict[str, int]] = {name: {} for name in LAUNCHES}
 
-#: grid-dimension limits of the kernels (gridDim.y <= 65535 rows of blocks)
+#: grid-dimension limits of the kernels (gridDim.y <= 65535 rows of blocks; kernel 7's
+#: grid runs B along x, which has room for any int32 B, and D / 64 tiles along y)
 _MAX_ENCODE_ROWS = 65535 * 32
-_MAX_MXU_ROWS = 65535 * 64
+_MAX_MXU_COLS = 65535 * 64
 _MAX_FIT_ROWS = 65535 * 128
+#: the histogram form of fit_bundle_dynamic: its thresholds lie in [0, 256) (uint8 direction
+#: entries), a histogram block holds (4, 257, C rounded up to 4) int32 counts in shared
+#: memory (at most 48 classes), and G, (H, 256, C rounded up to 4) int32, is scratch
+HIST_MAX_CLASSES = 48
+HIST_MAX_SCRATCH_BYTES = 256 * 2**20
 _DIR_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
 _TABLE_DTYPES = (torch.int8, torch.int32)
 
@@ -43,6 +54,17 @@ _TABLE_DTYPES = (torch.int8, torch.int32)
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        LAUNCH_SHAPES[name].clear()
+
+
+def _launched(name: str, **dims) -> None:
+    LAUNCHES[name] += 1
+    key = " ".join(f"{k}={v}" for k, v in dims.items())
+    LAUNCH_SHAPES[name][key] = LAUNCH_SHAPES[name].get(key, 0) + 1
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).split(".")[-1]
 
 
 def _on_cpu(*tensors: torch.Tensor) -> bool:
@@ -66,6 +88,12 @@ def _check(err: int, name: str) -> None:
 
 def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a fresh copy of it where a view's offset leaves its base off a
+    16-byte boundary (a TMA tensor map needs one)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
 
 
 def _stream(dev: torch.device) -> ctypes.c_void_p:
@@ -125,7 +153,7 @@ def encode_bundle(x_q: torch.Tensor, sobol_q: torch.Tensor) -> torch.Tensor:
             _ptr(x), _ptr(tab), tab_bytes, _ptr(out), b, h, d, _stream(x.device)
         )
     _check(err, "encode_bundle")
-    LAUNCHES["encode_bundle"] += 1
+    _launched("encode_bundle", B=b, H=h, D=d, table=_dtype_name(tab))
     return out
 
 
@@ -153,7 +181,7 @@ def fit_bundle(
             _stream(x.device),
         )
     _check(err, "fit_bundle")
-    LAUNCHES["fit_bundle"] += 1
+    _launched("fit_bundle", B=b, H=h, C=n_classes, D=d, table=_dtype_name(tab))
     return sums
 
 
@@ -176,8 +204,20 @@ def encode_bundle_dynamic(
             _stream(x.device),
         )
     _check(err, "encode_bundle_dynamic")
-    LAUNCHES["encode_bundle_dynamic"] += 1
+    _launched("encode_bundle_dynamic", B=b, H=h, D=d, dir=_dtype_name(dirs))
     return out
+
+
+def fit_dynamic_path(direction_dtype: torch.dtype, n_features: int, n_classes: int) -> str:
+    """Which form of the table-free training kernel runs, from dtypes and
+    shapes alone: ``"histogram"`` (class sums from per-class threshold
+    histograms) for a uint8 direction matrix, at most
+    ``HIST_MAX_CLASSES`` classes and a histogram scratch within
+    ``HIST_MAX_SCRATCH_BYTES``; else ``"direct"`` (the compare-and-count
+    kernel).  Both give the same integers."""
+    cp = -(-n_classes // 4) * 4
+    fits = 0 < n_classes <= HIST_MAX_CLASSES and n_features * 256 * cp * 4 <= HIST_MAX_SCRATCH_BYTES
+    return "histogram" if direction_dtype == torch.uint8 and fits else "direct"
 
 
 def fit_bundle_dynamic(
@@ -186,7 +226,8 @@ def fit_bundle_dynamic(
 ) -> torch.Tensor:
     """Fused table-free training step, (B, H), (H, 32), (B,) -> (C, d)
     int32 class sums; labels outside [0, n_classes) contribute nothing.
-    Semantics: ``ref.fit_bundle_dynamic``."""
+    On a card it runs the histogram form or the direct form, as
+    :func:`fit_dynamic_path` says.  Semantics: ``ref.fit_bundle_dynamic``."""
     if _on_cpu(x_q, direction, labels):
         return ref.fit_bundle_dynamic(x_q, direction, labels, n_classes, d, skip=skip)
     x = x_q.to(torch.int32).contiguous()
@@ -198,13 +239,24 @@ def fit_bundle_dynamic(
     if b > _MAX_FIT_ROWS:
         raise ValueError(f"fit_bundle_dynamic takes at most {_MAX_FIT_ROWS} rows, got {b}")
     sums = torch.zeros((n_classes, d), dtype=torch.int32, device=x.device)
+    path = fit_dynamic_path(dirs.dtype, h, n_classes)
     with torch.cuda.device(x.device):
-        err = _build.library().uhd_fit_bundle_dynamic(
-            _ptr(x), _ptr(dirs), dir_bytes, _ptr(lab), _ptr(sums), b, h,
-            n_classes, d, int(skip), _stream(x.device),
-        )
+        if path == "histogram":
+            cp = -(-n_classes // 4) * 4
+            g = torch.empty((h, 256, cp), dtype=torch.int32, device=x.device)
+            ncls = torch.empty(n_classes, dtype=torch.int32, device=x.device)
+            dir_or = torch.zeros(1, dtype=torch.int32, device=x.device)
+            err = _build.library().uhd_fit_bundle_dynamic_hist(
+                _ptr(x), _ptr(dirs), _ptr(lab), _ptr(sums), _ptr(g), _ptr(ncls),
+                _ptr(dir_or), b, h, n_classes, d, int(skip), _stream(x.device),
+            )
+        else:
+            err = _build.library().uhd_fit_bundle_dynamic(
+                _ptr(x), _ptr(dirs), dir_bytes, _ptr(lab), _ptr(sums), b, h,
+                n_classes, d, int(skip), _stream(x.device),
+            )
     _check(err, "fit_bundle_dynamic")
-    LAUNCHES["fit_bundle_dynamic"] += 1
+    _launched("fit_bundle_dynamic", B=b, H=h, C=n_classes, D=d, dir=_dtype_name(dirs), path=path)
     return sums
 
 
@@ -237,7 +289,7 @@ def hamming_topk(
             _ptr(idx), _ptr(dist), _stream(dev),
         )
     _check(err, "hamming_topk")
-    LAUNCHES["hamming_topk"] += 1
+    _launched("hamming_topk", B=b, C=c, W=w, k=k)
     return idx, dist
 
 
@@ -258,7 +310,7 @@ def hamming_packed(q_words: torch.Tensor, c_words: torch.Tensor, d: int) -> torc
             _ptr(q), _ptr(rows), b, c, w, int(d), _ptr(out), _stream(q.device)
         )
     _check(err, "hamming_packed")
-    LAUNCHES["hamming_packed"] += 1
+    _launched("hamming_packed", B=b, C=c, W=w)
     return out
 
 
@@ -279,22 +331,25 @@ def encode_unary_mxu_operands(u: torch.Tensor, onehot_t: torch.Tensor, h: int) -
     if u.dtype != torch.int8 or onehot_t.dtype != torch.int8:
         raise ValueError("encode_unary_mxu operands must be int8 0/1")
     (b, k), d = u.shape, onehot_t.shape[0]
-    if b > _MAX_MXU_ROWS:
-        raise ValueError(f"encode_unary_mxu takes at most {_MAX_MXU_ROWS} rows, got {b}")
+    if d > _MAX_MXU_COLS:
+        raise ValueError(f"encode_unary_mxu takes at most {_MAX_MXU_COLS} columns, got {d}")
     pad = -k % ref.K_ALIGN
     if pad:
         u = torch.nn.functional.pad(u, (0, pad))
         onehot_t = torch.nn.functional.pad(onehot_t, (0, pad))
-    u, onehot_t = u.contiguous(), onehot_t.contiguous()
+    # the tensor maps need 16-byte aligned bases: a view's offset may break that
+    u, onehot_t = (_aligned16(t.contiguous()) for t in (u, onehot_t))
     out = torch.empty((b, d), dtype=torch.int32, device=u.device)
     if b == 0 or d == 0:
         return out
+    lib = _build.library()
     with torch.cuda.device(u.device):
-        err = _build.library().uhd_encode_unary_mxu(
+        err = lib.uhd_encode_unary_mxu(
             _ptr(u), _ptr(onehot_t), b, d, k + pad, int(h), _ptr(out), _stream(u.device)
         )
     _check(err, "encode_unary_mxu")
-    LAUNCHES["encode_unary_mxu"] += 1
+    _launched("encode_unary_mxu", B=b, K=k + pad, D=d,
+              tile="wide" if lib.uhd_encode_unary_mxu_wide(b, d) else "narrow")
     return out
 
 
@@ -329,5 +384,5 @@ def bundle_binarize(
             _ptr(hv), _ptr(lab), b, n_classes, d, int(binarize), _ptr(out), _stream(hv.device)
         )
     _check(err, "bundle_binarize")
-    LAUNCHES["bundle_binarize"] += 1
+    _launched("bundle_binarize", B=b, C=n_classes, D=d, binarize=bool(binarize))
     return out

@@ -175,27 +175,39 @@ def unary_mxu_operands(
     return u, o, h
 
 
+def baseline_onehot_u(x_q: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """Kernel 7's per-batch operand for the baseline: the one-hot
+    U[b, v*H + h] = [x[b, h] == v], (B, Kp) int8 (the JAX package's
+    ``baseline_encode`` layout), K = n_levels * H padded to Kp."""
+    b, h = x_q.shape
+    k = n_levels * h
+    v = torch.arange(n_levels, dtype=torch.int32, device=x_q.device)
+    u = torch.zeros((b, _k_padded(k)), dtype=torch.int8, device=x_q.device)
+    u[:, :k].view(b, n_levels, h).copy_(x_q.to(torch.int32)[:, None, :] == v[None, :, None])
+    return u
+
+
+def baseline_onehot_t(p: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
+    """Kernel 7's per-model operand for the baseline: O[d, v*H + h] =
+    [P[h, d] * L[v, d] = +1] = [P[h, d] == L[v, d]], (D, Kp) int8, K =
+    (levels + 1) * H padded to Kp.  It depends on the codebooks alone
+    (``core.encoding.baseline_operand_cache`` keeps it)."""
+    h, d = p.shape
+    n_levels = level.shape[0]
+    k = n_levels * h
+    o = torch.zeros((d, _k_padded(k)), dtype=torch.int8, device=p.device)
+    o[:, :k].view(d, n_levels, h).copy_(p.t()[:, None, :] == level.t()[:, :, None])
+    return o
+
+
 def baseline_operands(
     x_q: torch.Tensor, p: torch.Tensor, level: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Kernel 7's operands for the baseline bind + bundle
-    ``hv[b, d] = sum_h P[h, d] * L[x[b, h], d]``: the one-hot
-    U[b, v*H + h] = [x[b, h] == v], (B, Kp) int8 (the JAX package's
-    ``baseline_encode`` layout), and O[d, v*H + h] = [P[h, d] * L[v, d] =
-    +1] = [P[h, d] == L[v, d]], (D, Kp) int8, K = (levels + 1) * H padded
-    to Kp.  Each (b, h) has exactly one v with U = 1, so the ±1 sum is
-    ``2 * (U @ O.T) - H``; returns (U, O, H)."""
-    b, h = x_q.shape
-    n_levels, d = level.shape
-    dev = x_q.device
-    k = n_levels * h
-    kp = _k_padded(k)
-    v = torch.arange(n_levels, dtype=torch.int32, device=dev)
-    u = torch.zeros((b, kp), dtype=torch.int8, device=dev)
-    u[:, :k].view(b, n_levels, h).copy_(x_q.to(torch.int32)[:, None, :] == v[None, :, None])
-    o = torch.zeros((d, kp), dtype=torch.int8, device=dev)
-    o[:, :k].view(d, n_levels, h).copy_(p.t()[:, None, :] == level.t()[:, :, None])
-    return u, o, h
+    ``hv[b, d] = sum_h P[h, d] * L[x[b, h], d]``: (:func:`baseline_onehot_u`,
+    :func:`baseline_onehot_t`, H).  Each (b, h) has exactly one v with U =
+    1, so the ±1 sum is ``2 * (U @ O.T) - H``."""
+    return baseline_onehot_u(x_q, level.shape[0]), baseline_onehot_t(p, level), p.shape[0]
 
 
 def encode_unary_mxu(

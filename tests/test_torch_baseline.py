@@ -524,6 +524,114 @@ def test_train_hdc_cli_baseline_round_trips(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# Kernel 7's per-model operand [P == L], built once per codebook set
+# ---------------------------------------------------------------------------
+
+
+def _small_baseline(seed: int = 3) -> tuple[HDCConfig, object]:
+    ds = tload("synth_mnist", n_train=128, n_test=64)
+    return HDCConfig(n_features=784, n_classes=10, d=256, encoder="baseline", seed=seed), ds
+
+
+def test_baseline_operand_cache_builds_once_across_fit_partial_fit_predict():
+    cfg, ds = _small_baseline()
+    cache = tenc.BASELINE_OPERANDS
+    m0 = HDCModel.create(cfg, device="cpu")
+    before = cache.builds
+    m1 = m0.fit(ds.train_images[:64], ds.train_labels[:64])
+    m2 = m1.partial_fit(ds.train_images[64:], ds.train_labels[64:])
+    m2.predict(ds.test_images)
+    thm.predict_packed(m2, ds.test_images, m2.pack())
+    assert cache.builds - before == 1
+    p, level = m2.codebooks["p"], m2.codebooks["level"]
+    assert p is m0.codebooks["p"] and level is m0.codebooks["level"]  # the chain hands them on
+    assert torch.equal(cache.get(p, level), tref.baseline_onehot_t(p, level))
+    assert cache.builds - before == 1
+
+
+@pytest.mark.parametrize("change", ["seed", "p_in_place", "level_in_place", "copies"])
+def test_baseline_operand_cache_rebuilds_for_other_or_edited_codebooks(change):
+    cfg, ds = _small_baseline()
+    model = HDCModel.create(cfg, device="cpu")
+    x = model.quantize(ds.test_images[:9])
+    books = model.codebooks
+    tenc.baseline_encode(x, books["p"], books["level"])
+    before = tenc.BASELINE_OPERANDS.builds
+    if change == "seed":
+        books = HDCModel.create(dataclasses.replace(cfg, seed=4), device="cpu").codebooks
+    elif change == "p_in_place":
+        books["p"][5].neg_()  # through a view: the buffer's version moves
+    elif change == "level_in_place":
+        books["level"][3, ::2].neg_()
+    else:
+        books = {k: v.clone() for k, v in books.items()}
+    got = tenc.baseline_encode(x, books["p"], books["level"])
+    assert tenc.BASELINE_OPERANDS.builds == before + 1
+    assert torch.equal(got, tenc.baseline_encode_naive(x, books["p"], books["level"]))
+    tenc.baseline_encode(x, books["p"], books["level"])
+    assert tenc.BASELINE_OPERANDS.builds == before + 1
+
+
+def test_baseline_operand_cache_entry_goes_with_its_codebooks():
+    cfg, _ = _small_baseline(seed=5)
+    books = HDCModel.create(cfg, device="cpu").codebooks
+    cache = tenc.BASELINE_OPERANDS
+    cache.get(books["p"], books["level"])
+    n = len(cache._entries)
+    del books
+    import gc
+
+    gc.collect()
+    assert len(cache._entries) == n - 1
+
+
+def _tree(root: Path) -> dict[str, bytes]:
+    return {str(f.relative_to(root)): f.read_bytes() for f in sorted(root.rglob("*")) if f.is_file()}
+
+
+def test_operand_cache_leaves_checkpoints_unchanged_and_loadable_in_jax(pair, tmp_path):
+    import json
+
+    ds, jm, tm = pair
+    cache = tenc.BASELINE_OPERANDS
+    cache.clear()
+    tm[1].save(tmp_path / "cold", step=1)
+    tm[1].predict(ds.test_images)  # fills the cache for these codebooks
+    before = cache.builds
+    cache.get(tm[1].codebooks["p"], tm[1].codebooks["level"])
+    assert cache.builds == before  # the entry is there
+    tm[1].save(tmp_path / "warm", step=1)
+    cold, warm = _tree(tmp_path / "cold"), _tree(tmp_path / "warm")
+    assert sorted(cold) == sorted(warm)
+    for name in cold:
+        if name.endswith(".json"):  # the manifest: equal but for its time stamp
+            a, b = json.loads(cold[name]), json.loads(warm[name])
+            a.pop("time", None), b.pop("time", None)
+            assert a == b
+        else:
+            assert cold[name] == warm[name], name
+    back = JModel.load(tmp_path / "warm")
+    assert set(back.codebooks) == {"p", "level"}
+    np.testing.assert_array_equal(np.asarray(back.class_sums), np.asarray(jm[1].class_sums))
+    np.testing.assert_array_equal(np.asarray(back.predict(jnp.asarray(ds.test_images))),
+                                  np.asarray(jm[1].predict(jnp.asarray(ds.test_images))))
+
+
+@pytest.mark.parametrize("b,h,d,levels,seed", [(5, 37, 300, 16, 0), (9, 784, 256, 16, 1),
+                                               (3, 113, 130, 2, 2)])
+def test_cached_baseline_encode_equals_jax(b, h, d, levels, seed):
+    rng = np.random.default_rng(b + h + d)
+    x = rng.integers(0, levels + 1, (b, h)).astype(np.int32)
+    p, level = tenc.make_baseline_codebooks(prng.prng_key(seed), h, d, levels)
+    jp, jl = jenc.make_baseline_codebooks(jax.random.PRNGKey(seed), h, d, levels)
+    want = np.asarray(jenc.baseline_encode(jnp.asarray(x), jp, jl))
+    before = tenc.BASELINE_OPERANDS.builds
+    for _ in range(2):  # the first call builds [P == L], the second reads it back
+        np.testing.assert_array_equal(tenc.baseline_encode(_t(x), p, level).numpy(), want)
+    assert tenc.BASELINE_OPERANDS.builds == before + 1
+
+
+# ---------------------------------------------------------------------------
 # On a card: kernels 7 and 8 against their plain versions
 # ---------------------------------------------------------------------------
 

@@ -163,6 +163,19 @@ def test_hamming_topk_rejects_k_out_of_range():
             tops.hamming_topk(torch.from_numpy(q), torch.from_numpy(r), 64, k)
 
 
+@pytest.mark.parametrize(
+    "dtype,h,c,want",
+    [(torch.uint8, 784, 10, "histogram"), (torch.uint8, 113, 48, "histogram"),
+     (torch.uint8, 784, 49, "direct"), (torch.uint8, 784, 0, "direct"),
+     (torch.uint16, 784, 10, "direct"), (torch.uint32, 49, 2, "direct"),
+     (torch.uint8, 2**16, 4, "histogram"), (torch.uint8, 2**16 + 1, 4, "direct")],
+)
+def test_fit_dynamic_path_chooses_from_dtype_and_shape(dtype, h, c, want):
+    # uint8 entries put every threshold below 256; a histogram block holds (4, 257, C
+    # rounded up to 4) counts, and G = (H, 256, C rounded up to 4) int32 stays within 256 MiB
+    assert tops.fit_dynamic_path(dtype, h, c) == want
+
+
 # ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
@@ -245,3 +258,59 @@ def test_cuda_launch_counters_count_kernel_launches(cuda):
     tops.encode_bundle_dynamic(torch.from_numpy(x), torch.from_numpy(dirs), 64)
     assert tops.LAUNCHES["encode_bundle_dynamic"] == 2
 
+
+# (B, H, D, C, skip, levels): ragged B, H and D; 8-bit thresholds; C = 26; skips near
+# 2**32; a D-shard of 2048 columns starting at point 1 + 2048
+_FIT_PATH_CASES = [
+    (37, 100, 1000, 10, 1000, 16), (33, 113, 257, 26, 2**32 - 3, 256),
+    (256, 784, 2048, 10, 1 + 2048, 16), (65, 30, 130, 10, 2**32 - 100, 16),
+    (1, 5, 33, 3, 0, 2), (300, 49, 300, 48, 7, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["histogram", "direct"])
+@pytest.mark.parametrize("b,h,d,c,skip,levels", _FIT_PATH_CASES)
+def test_cuda_fit_bundle_dynamic_both_paths_equal_plain(cuda, path, b, h, d, c, skip, levels):
+    x, labels, dirs = _inputs(b + h + d, b, h, levels=levels, n_classes=c)
+    labels[::7] = -1  # out-of-range labels: never written, never summed
+    labels[3::11] = c
+    rng = np.random.default_rng(b)
+    x[1::3, ::4] = rng.integers(-2**31, 2**31, x[1::3, ::4].shape)  # x outside [0, T)
+    if path == "direct":  # the same entries, wider: the compare-and-count kernel
+        dirs = dirs.astype(np.uint16)
+    xt, dt, lt = (torch.from_numpy(a).to(cuda) for a in (x, dirs, labels))
+    assert tops.fit_dynamic_path(dt.dtype, h, c) == path
+    tops.reset_launches()
+    got = tops.fit_bundle_dynamic(xt, dt, lt, c, d, skip=skip)
+    torch.cuda.synchronize()
+    assert list(tops.LAUNCH_SHAPES["fit_bundle_dynamic"]) == [
+        f"B={b} H={h} C={c} D={d} dir={dirs.dtype} path={path}"]
+    assert torch.equal(got, tref.fit_bundle_dynamic(xt, dt, lt, c, d, skip=skip))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [700, 8160, 8192])
+@pytest.mark.parametrize("b", [1, 5, 64, 65, 2048])
+def test_cuda_encode_unary_mxu_tiles_equal_plain(cuda, b, d):
+    k = 13344  # 104.25 slices of 128 bytes: the last one partly out of bounds
+    rng = np.random.default_rng(b + d)
+    u = torch.from_numpy((rng.random((b, k)) < 0.06).astype(np.int8)).to(cuda)
+    o = torch.from_numpy((rng.random((d, k)) < 0.5).astype(np.int8)).to(cuda)
+    got = tops.encode_unary_mxu_operands(u, o, 784)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.encode_unary_mxu(u, o, 784))
+
+
+@pytest.mark.cuda
+def test_cuda_encode_unary_mxu_takes_an_unaligned_view(cuda):
+    # a contiguous view one byte into its storage: a TMA tensor map needs a
+    # 16-byte aligned base, so the wrapper copies it
+    rng = np.random.default_rng(0)
+    flat = torch.from_numpy((rng.random(1 + 9 * 640) < 0.3).astype(np.int8)).to(cuda)
+    u = flat[1:].view(9, 640)
+    assert u.is_contiguous() and u.data_ptr() % 16 != 0
+    o = torch.from_numpy((rng.random((70, 640)) < 0.5).astype(np.int8)).to(cuda)
+    got = tops.encode_unary_mxu_operands(u, o, 7)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.encode_unary_mxu(u, o, 7))
