@@ -9,8 +9,9 @@ Phases, each printed as one JSON object per line:
 2. build: the CUDA kernels of ``repro_torch`` built from ``src/repro_torch/kernels/csrc``
    with nvcc for sm_90a, with the seconds taken and ptxas's register and
    shared-memory lines;
-3. kernels: each kernel against its plain PyTorch version on the card at the
-   main paths' shapes and at ragged ones, for exact equality (the datapath
+3. kernels: each kernel (both forms of the two training kernels) against its
+   plain PyTorch version on the card at the main paths' shapes and at ragged
+   ones, for exact equality (the datapath
    is integer: the tolerance is 0), then timed with CUDA events (``ms``, a
    call's wall share included) and by ``torch.profiler`` (``device_ms``, the
    device's share alone); for the table encode, ``hamming_packed`` and
@@ -31,8 +32,9 @@ Phases, each printed as one JSON object per line:
    package's, and the checkpoint round trip;
 6. item_memory: an ``ItemMemory`` of 65,536 random rows at d=8192 (64 MiB),
    after a delete and more adds, searched with k=8 against the plain version;
-7. sharded: for each encoder at D=8192 and at D=8160 (8160 / 4 = 2040 bits a
-   shard, not whole words), ``partial_fit_sharded`` of the smoke's 512 + 512
+7. sharded: for each uHD encoder at D=8192 and at D=8160 (8160 / 4 = 2040 bits a
+   shard, not whole words), and for the baseline encoder at D=8192 (kernels 7
+   and 8 at 2048 columns a shard), ``partial_fit_sharded`` of the smoke's 512 + 512
    images on the card's own mesh and on a (data 2, model 4) mesh of one card,
    the class sums against the JAX package's checksums (D=8192) or the
    single-device ``partial_fit`` (D=8160); those models saved as 4 per-host
@@ -46,11 +48,16 @@ Phases, each printed as one JSON object per line:
    its class sums against the JAX package's checksum, and the round trip;
 10. slice_baseline: the serving smoke with the paper's baseline encoder, its
    class sums and served accuracy against the JAX package's (kernels 7, 8, 5);
-11. train_baseline: ``train_hdc --encoder baseline --compare-baseline
+11. slice_policy: the baseline smoke's step-1 model under non-default scoring
+   policies (``class_binarize="none"``, ``binarize_query=True``,
+   ``similarity="hamming"``), checkpointed and served through a
+   ``ServingEngine``, its labels against the JAX package's;
+12. train_baseline: ``train_hdc --encoder baseline --compare-baseline
    --baseline-iters 5`` at the launcher's defaults, each seed's class sums
-   against the JAX package's checksum and its labels against JAX's, and the
+   against the JAX package's checksum and its labels against JAX's (taken as
+   each retrain is trained: the launcher keeps no retrained model), and the
    checkpoint round trip;
-12. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
+13. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
    encoder, on one device and on 4 shards: device time per batch by kernel,
    and the device's idle share.
 
@@ -140,6 +147,27 @@ JAX_BASELINE_SHA256 = (
     "ae003c86330dcaa941561a30aa2f11f1055f4b37d62520f4703f2f7398d74f34",  # step 1
 )
 JAX_BASELINE_SERVED_ACCURACY = 0.86328125
+
+# The serving smoke's step-1 baseline model under non-default scoring policies (the
+# JAX package on the CPU): its predict_packed (= predict, hamming) labels of the 256
+# test images and their accuracy, from
+#   PYTHONPATH=src JAX_PLATFORMS=cpu python -c "import numpy as np,jax.numpy as jnp; \
+#   from repro.core import HDCConfig,HDCModel; from repro.core.hdc_model import predict_packed; \
+#   from repro.data import load_dataset; ds=load_dataset('synth_mnist',n_train=1024,n_test=256); \
+#   c=HDCConfig(n_features=784,n_classes=10,d=8192,levels=16,encoder='baseline', \
+#   class_binarize='none',binarize_query=True,similarity='hamming'); \
+#   m=HDCModel.create(c).fit(ds.train_images[:512],ds.train_labels[:512]) \
+#   .partial_fit(ds.train_images[512:],ds.train_labels[512:]); x=jnp.asarray(ds.test_images); \
+#   p=np.asarray(predict_packed(m,x,m.pack())); assert (p==np.asarray(m.predict(x))).all(); \
+#   print((p==ds.test_labels).mean()); print(''.join(map(str,p.tolist())))"
+JAX_POLICY = dict(class_binarize="none", binarize_query=True, similarity="hamming")
+JAX_POLICY_ACCURACY = 0.85546875
+JAX_POLICY_LABELS = (
+    "5072570471867376405388822623100675813798368454582964212317852141"
+    "7242618445142432272982610817810596853235485367957370955905349196"
+    "7630869225524913645788943133569573600775037209729254374453587974"
+    "2146876682408769209046913220190215187336405294243451836833113602"
+)
 
 # `python -m repro.launch.train_hdc --encoder baseline --compare-baseline` at its defaults
 # (the JAX package on the CPU): for each seed i of baseline_iterative_search (seed 0 is
@@ -395,6 +423,17 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = INT32_OPS_PER_S) -
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def encode_dynamic_ops(b: int, h: int, d: int, nb: int) -> int:
+    """The integer operations encode_bundle_dynamic's kernel issues: where the
+    thresholds have at most 7 bits it counts four rows in the bytes of one word
+    with an add, a shift, a mask and an accumulate (4 int32 ops a word, B*H*D/4
+    words); wider thresholds take a compare and an add a row (2*B*H*D).  Plus nb
+    popcounts a generated S[h, d], nb the bits the direction matrix uses, once
+    for each 64-row block."""
+    per_row = 1 if nb <= 7 else 2
+    return per_row * b * h * d + h * d * nb * -(-b // 64)
+
+
 def library_int_mm(torch, results, got, x, tab, levels, shape) -> None:
     """Time ``torch._int_mm`` computing the table encode's counts exactly: the
     JAX package's unary_matmul form (``core/encoding.py:94``), the inclusive
@@ -458,6 +497,9 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         t = sobol.sobol_table_for_features(h, d, levels, seed=0)
         return torch.from_numpy(t.astype("int8" if levels <= 127 else "int32")).to(dev)
 
+    def _dtype(t):
+        return str(t.dtype).split(".")[-1]
+
     def check(name, got, want, shape, timed=None, direct_ops=None):
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
@@ -476,7 +518,7 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
             b_ms, b_by = bound_ms(n_bytes, n_ops, *rate)
             share = b_ms / dev_ms if isinstance(dev_ms, float) else "not measured"
             extra = {}
-            if direct_ops is not None:  # the direct form's count: 2*B*H*D compares, B*D adds
+            if direct_ops is not None:  # the direct form's count: a compare and an add a row
                 extra["bound_ms_direct_form"] = bound_ms(n_bytes, direct_ops)[0]
             key = launch_key(torch, ops, name, kernel_fn)
             emit("kernel_time", kernel=name, shape=shape, key=key, ms=ms, device_ms=dev_ms,
@@ -504,39 +546,69 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         if b == 64 and d == 8192:
             library_int_mm(torch, results, got, x, tab, levels, shape)
 
-    # -- fit_bundle: the smoke's fit batch, train_hdc's batch, then ragged with
-    #    bad labels -----------------------------------------------------------
-    for b, h, d, c in [(512, 784, 8192, 10), (2048, 784, 8192, 10), (256, 784, 2048, 10),
-                       (256, 784, 2040, 10), (37, 100, 1000, 10)]:
+    # -- fit_bundle: the histogram form (int8 tables) at the smoke's fit batch,
+    #    train_hdc's batch and the D-shard batches; the direct form (the same
+    #    entries as int32) at the smoke's batch; then a full-range int8 table
+    #    (entries in [-128, 127], x outside every row's range, labels -1 and C)
+    #    on both forms, and ragged shapes on both forms, C = 48 and C = 50 ------
+    for b, h, d, c, wide, full in [
+        (512, 784, 8192, 10, False, False), (2048, 784, 8192, 10, False, False),
+        (256, 784, 2048, 10, False, False), (256, 784, 2040, 10, False, False),
+        (512, 784, 8192, 10, True, False), (256, 784, 2040, 10, False, True),
+        (256, 784, 2040, 10, True, True), (37, 100, 1000, 10, False, False),
+        (37, 100, 1000, 10, True, False), (300, 49, 300, 48, False, True),
+        (33, 113, 257, 26, True, True), (37, 100, 1000, 50, False, False),
+    ]:
         x, tab = rand_x(b, h), table(h, d)
         labels = torch.randint(0, c, (b,), generator=gen, device=dev, dtype=torch.int32)
-        if b == 37:
+        if full:
+            tab = torch.randint(-128, 128, (h, d), generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            x = torch.randint(-300, 300, (b, h), generator=gen, device=dev, dtype=torch.int32)
+            x[1::3, ::4] = torch.randint(-2**31, 2**31 - 1, x[1::3, ::4].shape, generator=gen,
+                                         device=dev, dtype=torch.int32)  # any int32 x
+        if b < 256 or full:
             labels[::5] = -1  # out of range: contributes nothing, written nowhere
             labels[2::7] = c
+        if wide:
+            tab = tab.to(torch.int32)
         k_fn = lambda: ops.fit_bundle(x, tab, labels, c)  # noqa: E731
         p_fn = lambda: ref.fit_bundle(x, tab, labels, c)  # noqa: E731
         got = k_fn()
         torch.cuda.synchronize()
+        path = ops.fit_table_path(tab.dtype, h, c)
+        want_path = "histogram" if tab.dtype == torch.int8 and c <= 48 else "direct"
+        if path != want_path:
+            raise AssertionError(f"fit_bundle took the {path} path, not {want_path}")
         n_bytes = b * h * 4 + h * d * tab.element_size() + b * 4 + c * d * 4
         # the class-sum form's work: B*H histogram counts and C*H*D gather-adds
-        check("fit_bundle", [got], [p_fn()], dict(B=b, H=h, D=d, C=c, table="int8"),
-              (k_fn, p_fn, n_bytes, b * h + c * h * d) if b != 37 else None,
+        shape = dict(B=b, H=h, D=d, C=c, table=_dtype(tab),
+                     **({"path": path} if path != "histogram" else {}),
+                     **({"entries": "full_int8"} if full else {}))
+        check("fit_bundle", [got], [p_fn()], shape,
+              (k_fn, p_fn, n_bytes, b * h + c * h * d) if b >= 256 and not full else None,
               direct_ops=2 * b * h * d + b * d)
 
-    # -- encode_bundle_dynamic: the serving batch, then ragged cases, one with
-    #    8-bit thresholds (levels=256) --------------------------------------
+    # -- encode_bundle_dynamic: the serving batch at each D-shard width, two
+    #    row tiles (B = 65), B = 2048, a skip near 2**32, then ragged cases with
+    #    8-bit thresholds (levels=256, the int32 compares) and uint16 entries -
     for b, h, d, skip, levels in [(64, 784, 8192, 1, 16), (64, 784, 2048, 1 + 2048, 16),
-                                  (64, 784, 2040, 1 + 2040, 16), (37, 100, 1000, 1000, 16),
-                                  (33, 113, 257, 0, 256)]:
+                                  (64, 784, 2040, 1 + 2040, 16), (65, 784, 8192, 1, 16),
+                                  (2048, 784, 8192, 1, 16), (64, 784, 2048, 2**32 - 5, 16),
+                                  (37, 100, 1000, 1000, 16), (33, 113, 257, 0, 256),
+                                  (9, 40, 200, 3, 2**16)]:
         x, dirs = rand_x(b, h, levels), direction(h, levels)
         k_fn = lambda: ops.encode_bundle_dynamic(x, dirs, d, skip=skip)  # noqa: E731
         p_fn = lambda: ref.encode_bundle_dynamic(x, dirs, d, skip=skip)  # noqa: E731
         got = k_fn()
         torch.cuda.synchronize()
-        n_bytes = b * h * 4 + h * 32 + b * d * 4
+        n_bytes = b * h * 4 + h * 32 * dirs.element_size() + b * d * 4
+        nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
         check("encode_bundle_dynamic", [got], [p_fn()],
               dict(B=b, H=h, D=d, skip=skip, levels=levels),
-              (k_fn, p_fn, n_bytes, 2 * b * h * d) if b == 64 else None)
+              (k_fn, p_fn, n_bytes, encode_dynamic_ops(b, h, d, nb))
+              if b == 64 and skip < 2**31 else None,
+              direct_ops=2 * b * h * d)
 
     # -- fit_bundle_dynamic: the fit batches and the D-shard batches on the
     #    histogram path; the smoke's batch on the direct path (the same
@@ -796,6 +868,18 @@ def path_launches(ops, name: str, kernels: tuple[str, ...], fn, absent: tuple[st
     return out, launches
 
 
+def uncounted(ops, fn):
+    """fn's result, with the launch counts left as they were before it."""
+    launches = dict(ops.LAUNCHES)
+    shapes = {k: dict(v) for k, v in ops.LAUNCH_SHAPES.items()}
+    out = fn()
+    ops.LAUNCHES.update(launches)
+    for k, v in shapes.items():
+        ops.LAUNCH_SHAPES[k].clear()
+        ops.LAUNCH_SHAPES[k].update(v)
+    return out
+
+
 def sha256_of(sums) -> str:
     return hashlib.sha256(sums.cpu().numpy().astype("<i4").tobytes()).hexdigest()
 
@@ -896,10 +980,24 @@ def train_baseline_phase(torch, ops, train_hdc, load_dataset):
         "--device", "cuda", "--encoder", "baseline", "--compare-baseline",
         "--baseline-iters", "5", "--save-dir", str(ROOT / "build" / "chip_smoke_train_baseline"),
     ])
+    ds = load_dataset(args.dataset, n_train=args.n_train, n_test=args.n_test)
+    runs = []
+
+    def check(what, seed, model):
+        """A model's checksum and labels against JAX's, taken on the spot (the
+        launcher keeps no retrained model); the predict is not the path's, so
+        its launches are not counted."""
+        got = sha256_of(model.class_sums)
+        labels = uncounted(ops, lambda: model.predict(ds.test_images).cpu().numpy())
+        want = [int(c) for c in "".join(JAX_BASELINE_TRAIN_LABELS[seed])]
+        runs.append(dict(run=what, seed=seed, class_sums_sha256=got, labels=labels,
+                         labels_differing_from_jax=int(sum(int(a) != b
+                                                           for a, b in zip(labels, want)))))
+
     builds0 = encoding.BASELINE_OPERANDS.builds
     result, launches = path_launches(
         ops, "train_baseline", ("encode_unary_mxu", "bundle_binarize"),
-        lambda: train_hdc.train(args),
+        lambda: train_hdc.train(args, on_retrain=lambda i, m: check("retrain", i, m)),
         ("encode_bundle", "fit_bundle", "encode_bundle_dynamic", "fit_bundle_dynamic"),
     )
     # [P == L] is built once per model: the seed-0 model and the five retrains
@@ -907,24 +1005,23 @@ def train_baseline_phase(torch, ops, train_hdc, load_dataset):
     emit("operand_cache", path="train_baseline", models=6, builds=builds)
     if builds != 6:
         raise AssertionError(f"train_baseline built [P == L] {builds} times for 6 models")
-    ds = load_dataset(args.dataset, n_train=args.n_train, n_test=args.n_test)
-    runs = [("train", 0, result.model, result.accuracy)] + [
-        ("retrain", i, m, a) for i, (m, a) in
-        enumerate(zip(result.baseline_models, result.baseline_accs))
-    ]
-    for what, seed, model, acc in runs:
-        got = sha256_of(model.class_sums)
-        labels = model.predict(ds.test_images).cpu().numpy()
-        want = [int(c) for c in "".join(JAX_BASELINE_TRAIN_LABELS[seed])]
-        n_differ = int(sum(int(a) != b for a, b in zip(labels, want)))
+    check("train", 0, result.model)
+    runs.insert(0, runs.pop())
+    accs = [result.accuracy] + list(result.baseline_accs)
+    for r, acc in zip(runs, accs):
+        seed = r["seed"]
+        got = r["class_sums_sha256"]
+        n_differ = r["labels_differing_from_jax"]
         jax_acc = JAX_BASELINE_TRAIN_ACCURACY[seed]
-        emit("train_baseline", run=what, seed=seed, class_sums_sha256=got,
+        emit("train_baseline", run=r["run"], seed=seed, class_sums_sha256=got,
              jax_sha256=JAX_BASELINE_TRAIN_SHA256[seed], equal=got == JAX_BASELINE_TRAIN_SHA256[seed],
              accuracy=acc, jax_accuracy=jax_acc, labels_differing_from_jax=n_differ)
         if got != JAX_BASELINE_TRAIN_SHA256[seed]:
             raise AssertionError(f"baseline seed {seed} class sums differ from the JAX package's")
         if abs(acc - jax_acc) > 2 / 1024 or n_differ > 2:
             raise AssertionError(f"baseline seed {seed} labels differ from JAX's on {n_differ} images")
+    if len(runs) != 6:
+        raise AssertionError(f"train_baseline saw {len(runs) - 1} retrains, not 5")
     if len(result.baseline_accs) != 5 or result.round_trip_ok is not True:
         raise AssertionError("train_hdc --encoder baseline: retrains missing or round trip failed")
     accs = np.asarray(result.baseline_accs)
@@ -966,7 +1063,8 @@ def item_memory_phase(torch, ops, ref, ItemMemory):
 
 
 def sharded_phase(torch, ops, api, encoder: str, d: int, dev):
-    """D-sharded training and serving at the smoke's configuration.
+    """D-sharded training and serving at the smoke's configuration (the
+    baseline encoder's shards run kernels 7 and 8 at D / 4 columns).
 
     ``partial_fit_sharded`` of 512 + 512 images on the card's own
     ``(data, model)`` mesh (``mesh_for()``) and on a (data 2, model 4) mesh
@@ -985,10 +1083,15 @@ def sharded_phase(torch, ops, api, encoder: str, d: int, dev):
                         encoder=encoder)
     steps = [(ds.train_images[:512], ds.train_labels[:512]),
              (ds.train_images[512:], ds.train_labels[512:])]
-    fit_kernel, enc_kernel = (("fit_bundle_dynamic", "encode_bundle_dynamic")
-                              if encoder == "uhd_dynamic" else ("fit_bundle", "encode_bundle"))
+    fit_kernels, enc_kernel = {
+        "uhd_dynamic": (("fit_bundle_dynamic",), "encode_bundle_dynamic"),
+        "uhd": (("fit_bundle",), "encode_bundle"),
+        "baseline": (("encode_unary_mxu", "bundle_binarize"), "encode_unary_mxu"),
+    }[encoder]
+    jax_sha, jax_acc = ((JAX_BASELINE_SHA256, JAX_BASELINE_SERVED_ACCURACY)
+                        if encoder == "baseline" else (JAX_CLASS_SUMS_SHA256, JAX_SERVED_ACCURACY))
     if d == 8192:
-        want = list(JAX_CLASS_SUMS_SHA256)
+        want = list(jax_sha)
     else:
         single = [api.HDCModel.create(cfg, device=dev)]
         for x, y in steps:
@@ -1007,7 +1110,7 @@ def sharded_phase(torch, ops, api, encoder: str, d: int, dev):
             return models[1:], time.perf_counter() - t0
 
         path = f"sharded_fit_{encoder}_d{d}_{name}"
-        (models, fit_s), by_path[path] = path_launches(ops, path, (fit_kernel,), train)
+        (models, fit_s), by_path[path] = path_launches(ops, path, fit_kernels, train)
         got = [sha256_of(m.class_sums) for m in models]
         emit("sharded_fit", encoder=encoder, d=d, mesh=mesh.shape, shards=models[0].n_shards,
              sha256=got, want_sha256=want, against="jax" if d == 8192 else "partial_fit",
@@ -1050,8 +1153,8 @@ def sharded_phase(torch, ops, api, encoder: str, d: int, dev):
         if not (same and same_search):
             raise AssertionError(f"sharded serving ({encoder}, D={d}, {n} shards) differs "
                                  "from the single-device engine")
-        if d == 8192 and round(acc, 4) != JAX_SERVED_ACCURACY:
-            raise AssertionError(f"sharded served accuracy {acc} != JAX's {JAX_SERVED_ACCURACY}")
+        if d == 8192 and round(acc, 4) != round(jax_acc, 4):
+            raise AssertionError(f"sharded served accuracy {acc} != JAX's {jax_acc}")
     return by_path, engine
 
 
@@ -1085,6 +1188,40 @@ def sharded_search_phase(torch, ops, api, model, images, stored, dev):
         if not equal:
             raise AssertionError(f"sharded search on {n} shards differs from kernel 5's")
     return by_path
+
+
+def policy_phase(torch, ops, api, model, dev):
+    """The serving smoke's step-1 baseline model under non-default scoring
+    policies (JAX_POLICY), checkpointed and served through a ``ServingEngine``
+    (256 requests in batches of 64), launches counted; the served labels and
+    ``HDCModel.predict``'s (hamming) against the JAX package's."""
+    import dataclasses
+
+    import numpy as np
+
+    ds = api.load_dataset("synth_mnist", n_train=1024, n_test=256)
+    policy_model = api.HDCModel(dataclasses.replace(model.cfg, **JAX_POLICY), model.codebooks,
+                                model.class_sums, model.n_seen, device=dev)
+    ckpt = ROOT / "build" / "chip_smoke_policy"
+    policy_model.save(ckpt, step=0)
+
+    def serve():
+        engine = api.ServingEngine.from_checkpoint(ckpt, step=0, batch_size=64, device=dev)
+        return api.serve_batches(engine, ds.test_images, 64)
+
+    stats, launches = path_launches(ops, "slice_policy", ("encode_unary_mxu", "hamming_topk"),
+                                    serve)
+    want = np.asarray([int(c) for c in JAX_POLICY_LABELS])
+    direct = policy_model.predict(ds.test_images).cpu().numpy()
+    served_equal, direct_equal = bool((stats.labels == want).all()), bool((direct == want).all())
+    acc = float((stats.labels == ds.test_labels).mean())
+    emit("slice_policy", encoder=model.cfg.encoder, policy=JAX_POLICY, accuracy=acc,
+         jax_accuracy=JAX_POLICY_ACCURACY, served_labels_equal_jax=served_equal,
+         predict_labels_equal_jax=direct_equal,
+         batch_ms_mean=1e3 * sum(stats.batch_s) / len(stats.batch_s))
+    if not (served_equal and direct_equal and acc == JAX_POLICY_ACCURACY):
+        raise AssertionError("the non-default policy's labels differ from the JAX package's")
+    return launches
 
 
 def train_shard_map_phase(torch, ops, train_hdc):
@@ -1147,12 +1284,12 @@ def shape_case(torch, ops, sobol, name: str, key: str, gen):
         levels = {"uint8": 16, "uint16": 1024, "uint32": 2**17}[k["dir"]]
         dirs = torch.from_numpy(sobol.quantized_direction_matrix(h, levels, seed=0)).to(dev)
         x, es = rand_x(levels), dirs.element_size()
+        nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
         if name == "encode_bundle_dynamic":
             return (lambda: ops.encode_bundle_dynamic(x, dirs, d)), b * h * 4 + h * 32 * es \
-                + b * d * 4, 2 * b * h * d, ()
+                + b * d * 4, encode_dynamic_ops(b, h, d, nb), ()
         c = k["C"]
         lab = torch.randint(0, c, (b,), **i32)
-        nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
         return (lambda: ops.fit_bundle_dynamic(x, dirs, lab, c, d)), b * h * 4 + h * 32 * es \
             + b * 4 + c * d * 4, b * h + c * h * d + h * d * nb, ()
     if name in ("hamming_topk", "hamming_packed"):
@@ -1316,7 +1453,7 @@ def main() -> int:
     dev = torch.device("cuda", torch.cuda.current_device())
     sharded_engines = {}
     for encoder, d in [("uhd_dynamic", 8192), ("uhd", 8192), ("uhd_dynamic", 8160),
-                       ("uhd", 8160)]:
+                       ("uhd", 8160), ("baseline", 8192)]:
         paths, sharded_engines[encoder, d] = sharded_phase(torch, ops, api, encoder, d, dev)
         by_path.update(paths)
     by_path.update(sharded_search_phase(
@@ -1331,6 +1468,7 @@ def main() -> int:
         uhd_kernels,
     )
     emit("operand_cache", path="slice_baseline", builds=encoding.BASELINE_OPERANDS.builds - builds0)
+    by_path["slice_policy"] = policy_phase(torch, ops, api, result_base.models[1], dev)
     by_path["train_baseline"] = train_baseline_phase(torch, ops, train_hdc, load_dataset)
     probe = result_uhd.probe[:64]
     profile_phase(torch, result_dyn.engines[1], probe, "uhd_dynamic")
@@ -1338,6 +1476,7 @@ def main() -> int:
     profile_phase(torch, sharded_engines["uhd_dynamic", 8192], probe, "uhd_dynamic, 4 shards")
     profile_phase(torch, sharded_engines["uhd", 8192], probe, "uhd, 4 shards")
     profile_phase(torch, result_base.engines[1], probe, "baseline")
+    profile_phase(torch, sharded_engines["baseline", 8192], probe, "baseline, 4 shards")
 
     lost = lost_phase(torch, ops, sobol)
     line = []

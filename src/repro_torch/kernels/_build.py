@@ -34,6 +34,7 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "uhd_encode_bundle": (_P, _P, _I, _P, _I, _I, _I, _P),
     "uhd_fit_bundle": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _P),
+    "uhd_fit_bundle_hist": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "uhd_encode_bundle_dynamic": (_P, _P, _I, _P, _I, _I, _I, _L, _P),
     "uhd_fit_bundle_dynamic": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _L, _P),
     "uhd_fit_bundle_dynamic_hist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P),

@@ -7,63 +7,75 @@
 //   * encode_bundle_dynamic_pallas (:121, body _encode_bundle_dyn_kernel :88)
 //     -> uhd_encode_bundle_dynamic: the same, S generated
 //   * fit_bundle_pallas (:187, body _fit_bundle_kernel :170)
-//     -> uhd_fit_bundle: sums[c, d] = sum over rows labelled c of hv[b, d], S a table
+//     -> uhd_fit_bundle(_hist): sums[c, d] = sum over rows labelled c of hv[b, d], S a table
 //   * fit_bundle_dynamic_pallas (:261, body _fit_bundle_dyn_kernel :224)
-//     -> uhd_fit_bundle_dynamic: the same, S generated
+//     -> uhd_fit_bundle_dynamic(_hist): the same, S generated
 // A generated S[h, d] is never stored: it is the quantized Sobol integer of point
 // skip + d in dimension h, the XOR of the direction entries dir[h, j] selected by the
 // set bits of gray(skip + d).  Plain versions: repro_torch/kernels/ref.py.
 //
-// What bounds it: compare-and-count work, B*H*D integer compares and adds on the
-// CUDA cores (no tensor-core form is exact and cheap for a >= compare).  The bytes
-// are small: x (B, H) int32, the threshold source ((H, D) int8 or int32 table, or a
-// (H, 32) direction matrix) and the output.
+// What bounds the encodes: compare-and-count work, 2*B*H*D integer compares and adds
+// on the CUDA cores (no tensor-core form is exact and cheap for a >= compare).  The
+// bytes are small: x (B, H) int32, the threshold source ((H, D) int8 or int32 table,
+// or a (H, 32) direction matrix) and the output.
 //
-// What the design does about it:
-//   * one thread per output column d (DT columns a block); the compare loop is shared
-//     by both threshold sources (count_tile, templated over the source), which hand it
-//     S[h, d] for the HC features of a staged chunk:
-//       - Table: the block stages an (HC, DT) tile of the table in shared memory, in
-//         its stored width, with 16-byte coalesced loads issued before the x staging
-//         (element loads where rows are not 16-byte aligned: ragged D);
-//       - Generated: each thread derives gray(skip + d) once and builds S[h, d] for
-//         each h from bit planes: bit m of S[h, d] is the parity of (P[h][m] & gray),
-//         where P[h][m] packs bit m of the 32 direction entries of row h.  A warp
-//         stages a row with one ballot per plane, up to the highest bit set in the
-//         HC-row chunk, so a (h, d) costs one popcount per plane the entries use;
-//   * the block's x rows are staged in shared memory per HC-feature chunk, stored
-//     transposed so a thread reads four rows with one 16-byte load;
-//   * the BB row counters live in registers;
-//   * the fused step folds hv into a (C, DT) partial in shared memory over several
-//     row sub-tiles, then adds it to sums with int32 atomicAdd.  Integer addition is
-//     exact in any order, so the result is deterministic.  Blocks split both D and
-//     B, which gives enough blocks to fill 132 SMs at D = 8192.
+// The compare loop (count_tile, templated over the threshold source) is shared by the
+// table encode and the direct training step.  One thread per output column d (DT
+// columns a block); the source hands it S[h, d] for the HC features of a staged chunk:
+//   - Table: the block stages an (HC, DT) tile of the table in shared memory, in its
+//     stored width, with 16-byte coalesced loads issued before the x staging (element
+//     loads where rows are not 16-byte aligned: ragged D);
+//   - Generated: each thread derives gray(skip + d) once and builds S[h, d] for each h
+//     from bit planes: bit m of S[h, d] is the parity of (P[h][m] & gray), where P[h][m]
+//     packs bit m of the 32 direction entries of row h.  A warp stages a row with one
+//     ballot per plane, up to the highest bit set in the HC-row chunk, so a (h, d) costs
+//     one popcount per plane the entries use.
+// The block's x rows are staged in shared memory per HC-feature chunk, stored
+// transposed so a thread reads four rows with one 16-byte load; the row counters live
+// in registers.  The direct training step folds hv into a (C, DT) partial in shared
+// memory, then adds it to sums with int32 atomicAdd (exact in any order).
 //
-// The table-free training step over a uint8 direction matrix (thresholds in [0, 256),
-// every configuration the launchers run) takes another form, with the same integers:
-//     sums[c, d] = sum_h (2 * G[c, h, S[h, d]] - n_c),
-//     G[c, h, t] = #{b : label b = c, x[b, h] >= t},  n_c = #{b : label b = c},
-// so its work is B*H histogram counts plus C*H*D gather-adds and H*D threshold
-// generations, none of which grows with B (the direct form is 2*B*H*D compares):
-//   * hist_kernel: a block counts HIST_F features of every row into shared memory,
-//     bucketing x as clamp(x, -1, T_h - 1) with T_h = 2^(bits of row h's direction
-//     entries), so any int32 x compares as the TPU kernel compares it; labels outside
-//     [0, C) count nowhere; then suffix sums over t give G, stored (H, 256, CP) int32
-//     (CP = C rounded up to 4), and block 0 writes n_c.  It also ORs the direction
-//     entries into one word, the bits any threshold uses;
-//   * gather_kernel: one thread per output column, blocks split D and H (enough
-//     blocks for 132 SMs at D = 2048 as at 8192); per chunk of features a block
-//     stages G[h, 0..T) for every class in shared memory and the direction bit
-//     planes, then each thread generates S[h, d] once and adds the C counts of row
-//     (h, S) into registers, and writes 2 * acc - H * n_c (the H * n_c term once, by
-//     the first H-split) with int32 atomics, exact in any order.
-// The wrapper allocates G, n_c and the OR word; the kernels allocate nothing.
+// The table-free encode (encode_dynamic_kernel) has a kernel of its own.  A block covers
+// 64 rows, so each S[h, d] is generated once for all of them, and counts four rows in
+// the bytes of one word (one add, shift and mask for four compares where thresholds
+// have at most 7 bits).  It splits H over the blocks of a thread-block cluster, so B =
+// 64 at D = 2048 still gives 256 blocks (512 at D = 8192).  Each split leaves its (64,
+// DT) counts in shared memory; after a cluster barrier each block sums its share of the
+// rows over the cluster's shared memory (distributed shared memory: no atomics, no
+// memset, no second launch) and writes 2 * count - H once.
+//
+// The training step over an int8 table or a uint8 direction matrix, with C <= 48
+// classes (every configuration the launchers run), takes the class-histogram form,
+// with the same integers:
+//     sums[c, d] = sum_h (2 * G[c, h, S[h, d] - lo_h] - n_c),
+//     G[c, h, j] = #{b : label b = c, x[b, h] >= lo_h + j},  n_c = #{b : label b = c},
+// where every threshold of row h lies in [lo_h, hi_h], hi_h - lo_h < 256.  Its work is
+// B*H histogram counts plus C*H*D gather-adds (and H*D threshold generations), none of
+// which grows with B (the direct form is 2*B*H*D compares):
+//   * hist_kernel: a block finds the range of HIST_F rows (generated: lo = 0 and hi =
+//     2^(bits of the row's direction entries) - 1; table: the min and max of the row's
+//     D entries, sign-extended), counts each row's x into per-class buckets of
+//     clamp(x, lo_h - 1, hi_h), which compares as x >= S does for any int32 x, then
+//     takes suffix sums over the buckets to G, stored (H, 256, CP) int32 (CP = C rounded
+//     up to 4); labels outside [0, C) count nowhere; block 0 writes n_c.  Each block
+//     raises `span` to the largest hi_h - lo_h + 1 (the G rows the gather stages), and
+//     for a table writes lo_h;
+//   * gather_kernel: one thread per output column, blocks split D and H (about 4 * 132
+//     blocks at D = 2048 as at 8192); per chunk of features a block stages `span` rows
+//     of G for every class and the features' thresholds (direction bit planes, or the
+//     table's bytes of its columns), then each thread adds the C counts of row (h, S -
+//     lo_h) into registers, and writes 2 * acc - H * n_c (the H * n_c term once, by the
+//     first H-split) with int32 atomics, exact in any order.
+// The wrapper allocates G, n_c, lo and span; the kernels allocate nothing.
 // Ragged B, H and D are masked in the kernels: no padding, no correction.
 // skip is a runtime argument, taken modulo 2**32 as the TPU kernel's uint32 index.
 
 #include <climits>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -76,6 +88,7 @@ constexpr int MAXM = 32;    // threshold bits at most
 constexpr int FIT_SUB = 4;  // row sub-tiles per fused-step block
 constexpr int XS_PITCH = BB + 4;           // keeps rows 16-byte aligned
 constexpr int ACC_SMEM_BYTES = 32 * 1024;  // (C, DT) partial in shared memory
+constexpr int FILL_BLOCKS = 4 * 132;      // blocks a split grid aims at (4 an SM)
 
 // ---------------------------------------------------------------------------
 // Threshold sources.  Per HC-feature chunk [h0, h0 + hn), count_tile calls
@@ -328,45 +341,317 @@ void launch_fit(const int* x, const typename Src::Args& args, const int* labels,
 }
 
 // ---------------------------------------------------------------------------
-// The histogram form of the table-free training step (uint8 direction entries).
+// The table-free encode: 64 rows a block, H split over a thread-block cluster.
+// ---------------------------------------------------------------------------
+
+constexpr int ERB = 2 * BB;            // rows an encode block covers: 64
+constexpr int EXS_PITCH = ERB + 4;     // keeps rows 16-byte aligned
+constexpr int ENC_MAX_SPLIT = 16;      // cluster size along H (above 8: non-portable)
+constexpr int ENC_MIN_FEATURES = 8;    // features an H split holds at least
+constexpr int LANE_BITS = 7;           // thresholds of at most 7 bits take the byte lanes
+constexpr int LANE_MAX_ADDS = 255;     // features a byte lane counts before its flush
+
+// H splits of a launch: doubled while the grid stays within FILL_BLOCKS blocks.  A
+// power of two, so it divides the ERB rows a block shares out in the reduction.
+int encode_dynamic_splits(int B, int H, int D) {
+  const long long tiles = static_cast<long long>((D + DT - 1) / DT) * ((B + ERB - 1) / ERB);
+  int splits = 1;
+  while (splits < ENC_MAX_SPLIT && tiles * splits * 2 <= FILL_BLOCKS &&
+         2 * splits * ENC_MIN_FEATURES <= H)
+    splits *= 2;
+  return splits;
+}
+
+// acc[q] holds the counts of rows 4q..4q+3 in its bytes; add them to the block's counts
+__device__ __forceinline__ void flush_lanes(uint32_t (&acc)[ERB / 4], int (*part)[DT]) {
+#pragma unroll
+  for (int q = 0; q < ERB / 4; ++q) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) part[4 * q + j][threadIdx.x] += (acc[q] >> (8 * j)) & 0xffu;
+    acc[q] = 0;
+  }
+}
+
+// The compare loop counts four rows in the bytes of one word.  Where the chunk's
+// thresholds have at most LANE_BITS bits (levels <= 128, every configuration the
+// launchers run), x is staged as the byte clamp(x, -1, 127) + 1, which compares with any
+// s < 128 as x does, and one add of (127 - s) in each byte sets bit 7 exactly where
+// x >= s: four compares in an add, a shift and a mask.  Wider thresholds compare the
+// int32 x row by row into the same bytes.  The bytes are flushed to int32 counts in
+// shared memory before they could overflow.
+__global__ void __launch_bounds__(DT) encode_dynamic_kernel(const int* __restrict__ x,
+                                                            Generated::Args args,
+                                                            int* __restrict__ out, int B, int H,
+                                                            int D) {
+  __shared__ __align__(16) int xs[HC][EXS_PITCH];       // x as int32
+  __shared__ __align__(16) uint32_t xb[HC][ERB / 4];    // clamp(x, -1, 127) + 1, a byte a row
+  __shared__ Generated::Shared sh;
+  __shared__ int part[ERB][DT];  // this split's counts, read by the whole cluster
+  const int tid = threadIdx.x;
+  const int col0 = blockIdx.x * DT, col = col0 + tid;
+  const int b0 = blockIdx.z * ERB;
+  const int splits = gridDim.y;  // the cluster spans gridDim.y
+  const int per = (H + splits - 1) / splits;
+  const int hb0 = min(H, static_cast<int>(blockIdx.y) * per), hb1 = min(H, hb0 + per);
+  Generated src(args, sh, D, col0);
+#pragma unroll
+  for (int b = 0; b < ERB; ++b) part[b][tid] = 0;  // each thread owns its column
+  uint32_t acc[ERB / 4];
+#pragma unroll
+  for (int q = 0; q < ERB / 4; ++q) acc[q] = 0;
+  int pending = 0;  // features counted in acc since its last flush
+  for (int h0 = hb0; h0 < hb1; h0 += HC) {
+    const int hn = min(HC, hb1 - h0);
+    src.load(h0, hn);  // issued first, so their latency overlaps the x staging below
+    __syncthreads();   // the previous chunk is consumed
+    for (int t = tid; t < ERB * HC; t += DT) {
+      const int b = t / HC, h = t % HC, gb = b0 + b;
+      const int v = (gb < B && h < hn) ? x[static_cast<long long>(gb) * H + h0 + h] : INT_MIN;
+      xs[h][b] = v;
+      reinterpret_cast<uint8_t*>(xb[h])[b] = static_cast<uint8_t>(min(max(v, -1), 127) + 1);
+    }
+    src.store(h0, hn);
+    __syncthreads();
+    src.ready();
+    if (pending + hn > LANE_MAX_ADDS) {
+      flush_lanes(acc, part);
+      pending = 0;
+    }
+    pending += hn;
+    if (src.nb <= LANE_BITS) {  // uniform over the block
+      for (int h = 0; h < hn; ++h) {
+        const uint32_t k = static_cast<uint32_t>(127 - src.at(h)) * 0x01010101u;
+        const uint4* xr = reinterpret_cast<const uint4*>(xb[h]);
+#pragma unroll
+        for (int q = 0; q < ERB / 16; ++q) {
+          const uint4 v = xr[q];
+          acc[4 * q + 0] += ((v.x + k) >> 7) & 0x01010101u;
+          acc[4 * q + 1] += ((v.y + k) >> 7) & 0x01010101u;
+          acc[4 * q + 2] += ((v.z + k) >> 7) & 0x01010101u;
+          acc[4 * q + 3] += ((v.w + k) >> 7) & 0x01010101u;
+        }
+      }
+    } else {
+      for (int h = 0; h < hn; ++h) {
+        const int si = src.at(h);
+        const int4* xr = reinterpret_cast<const int4*>(xs[h]);
+#pragma unroll
+        for (int q = 0; q < ERB / 4; ++q) {
+          const int4 v = xr[q];
+          acc[q] += static_cast<uint32_t>(v.x >= si) | static_cast<uint32_t>(v.y >= si) << 8 |
+                    static_cast<uint32_t>(v.z >= si) << 16 | static_cast<uint32_t>(v.w >= si) << 24;
+        }
+      }
+    }
+  }
+  flush_lanes(acc, part);
+  if (splits == 1) {  // uniform over the grid
+    if (col >= D) return;
+    for (int b = 0; b < ERB && b0 + b < B; ++b)
+      out[static_cast<long long>(b0 + b) * D + col] = 2 * part[b][tid] - H;
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's counts are in its shared memory
+  const int rows = ERB / splits, r0 = static_cast<int>(cluster.block_rank()) * rows;
+  for (int b = r0; b < r0 + rows; ++b) {
+    int v[ENC_MAX_SPLIT];
+#pragma unroll
+    for (int k = 0; k < ENC_MAX_SPLIT; ++k)  // all of a row's loads in flight together
+      v[k] = k < splits ? *cluster.map_shared_rank(&part[b][tid], k) : 0;
+    int sum = 0;
+#pragma unroll
+    for (int k = 0; k < ENC_MAX_SPLIT; ++k) sum += v[k];
+    if (col < D && b0 + b < B) out[static_cast<long long>(b0 + b) * D + col] = 2 * sum - H;
+  }
+  cluster.sync();  // no block leaves while another still reads its shared memory
+}
+
+int launch_encode_dynamic(const int* x, const Generated::Args& args, int* out, int B, int H,
+                          int D, cudaStream_t s) {
+  if (B <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
+  const int splits = encode_dynamic_splits(B, H, D);
+  if (splits > 8) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        encode_dynamic_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((D + DT - 1) / DT, splits, (B + ERB - 1) / ERB);
+  cfg.blockDim = dim3(DT);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, encode_dynamic_kernel, x, args, out, B, H, D);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The class-histogram form of the training step (int8 tables, uint8 directions).
 // ---------------------------------------------------------------------------
 
 constexpr int HIST_F = 4;             // features a histogram block counts
 constexpr int HIST_THREADS = 256;
-constexpr int T_MAX = 256;            // uint8 entries: thresholds lie in [0, 256)
+constexpr int T_MAX = 256;            // thresholds a feature's range holds at most
 constexpr int HIST_MAX_CP = 48;       // classes (rounded up to 4) the histogram form takes
 constexpr int GATHER_SMEM_INTS = 12288;  // a 48 KB tile of G
-constexpr int GATHER_MAX_F = 128;     // features a gather chunk holds at most
 constexpr int PLANES = 8;             // bit planes of uint8 entries
-constexpr int GATHER_BLOCKS = 4 * 132;   // blocks the gather grid aims at (4 an SM)
 
 int hist_smem_bytes(int cp) { return HIST_F * (T_MAX + 1) * cp * static_cast<int>(sizeof(int)); }
 
-__global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
-    const int* __restrict__ x, const uint8_t* __restrict__ dir, const int* __restrict__ labels,
-    int* __restrict__ G, int* __restrict__ ncls, unsigned* __restrict__ dir_or, int B, int H,
-    int C, int CP) {
-  extern __shared__ int hs[];  // (HIST_F, T_MAX + 1, CP): bucket v at row v + 1, v in [-1, T)
-  __shared__ int tbits[HIST_F];
-  const int h0 = blockIdx.x * HIST_F, hn = min(HIST_F, H - h0);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (warp < HIST_F) {  // a warp reads one direction row, lane j entry j
-    const uint32_t e = warp < hn ? dir[static_cast<long long>(h0 + warp) * 32 + lane] : 0u;
-    const uint32_t any = __reduce_or_sync(0xffffffffu, e);
-    if (lane == 0) {
-      tbits[warp] = 32 - __clz(any);  // __clz(0) == 32: a zero row has T = 1
-      if (any) atomicOr(dir_or, any);
+// Threshold sources of the histogram form.  In hist_kernel, range() (called by every
+// thread of the block) writes [lo, hi] of the block's HIST_F rows to shared memory and
+// publish() keeps what the gather needs of a row.  In gather_kernel, stage() brings a
+// chunk's thresholds into shared memory (between the block's two barriers) and row(f)
+// is this thread's G row, S[h, col] - lo_h, of the chunk's feature f.
+
+// S generated from uint8 direction entries: row h's thresholds lie in [0, 2^bits), bits
+// the highest set bit of its 32 entries, so lo_h = 0 and span = 2^nb, nb the bits any
+// row uses.
+__device__ __forceinline__ int log2_of(int pow2) { return 31 - __clz(pow2); }
+
+struct DirSource {
+  struct Args {
+    const uint8_t* dir;
+    long long skip;
+  };
+  static constexpr int MAX_F = 128;  // features a gather chunk holds at most
+  static constexpr bool LO_IS_ZERO = true;
+  struct Shared {
+    uint32_t planes[MAX_F][PLANES];
+  };
+
+  static __device__ void range(const Args& a, int h0, int hn, int /*D*/, int* lo, int* hi) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    if (warp < HIST_F) {  // a warp reads one direction row, lane j entry j
+      const uint32_t e = warp < hn ? a.dir[static_cast<long long>(h0 + warp) * 32 + lane] : 0u;
+      const uint32_t any = __reduce_or_sync(0xffffffffu, e);
+      if (lane == 0) {
+        lo[warp] = 0;
+        hi[warp] = (1 << (32 - __clz(any))) - 1;  // __clz(0) == 32: a zero row has T = 1
+      }
     }
   }
+  static __device__ void publish(const Args&, int /*h*/, int /*lo*/) {}
+
+  const Args a;
+  Shared& sh;
+  const uint32_t gray;
+  const int nb;
+
+  __device__ DirSource(const Args& args, Shared& s, int span, int col)
+      : a(args), sh(s), gray(Generated::gray_of(args.skip, col)), nb(log2_of(span)) {}
+
+  __device__ __forceinline__ void stage(int f0, int fn, int /*col*/, int /*D*/) {
+    for (int f = threadIdx.x; f < fn; f += DT) {  // bit m of the 32 entries of a row
+      const uint8_t* row = a.dir + static_cast<long long>(f0 + f) * 32;
+      uint32_t p[PLANES] = {};
+      for (int j = 0; j < 32; ++j) {
+        const uint32_t e = row[j];
+#pragma unroll
+        for (int m = 0; m < PLANES; ++m) p[m] |= ((e >> m) & 1u) << j;
+      }
+#pragma unroll
+      for (int m = 0; m < PLANES; ++m) sh.planes[f][m] = p[m];
+    }
+  }
+
+  __device__ __forceinline__ int row(int f) const {
+    uint32_t s = 0;
+#pragma unroll 4
+    for (int m = 0; m < nb; ++m) s |= static_cast<uint32_t>(__popc(sh.planes[f][m] & gray) & 1) << m;
+    return static_cast<int>(s);
+  }
+};
+
+// S read from a row-major (H, D) int8 table: row h's range is the min and max of its D
+// entries, sign-extended as the plain version compares them; lo_h goes to (H,) scratch.
+struct TableSource {
+  struct Args {
+    const int8_t* tab;
+    int* lo;  // (H,) int32, written by hist_kernel, read by gather_kernel
+  };
+  static constexpr int MAX_F = 64;
+  static constexpr bool LO_IS_ZERO = false;
+  struct Shared {
+    int8_t ts[MAX_F][DT];  // the chunk's thresholds of the block's columns
+    int lo[MAX_F];
+  };
+
+  static __device__ void range(const Args& a, int h0, int hn, int D, int* lo, int* hi) {
+    if (threadIdx.x < HIST_F) {
+      lo[threadIdx.x] = INT_MAX;
+      hi[threadIdx.x] = INT_MIN;
+    }
+    __syncthreads();
+    for (int f = 0; f < hn; ++f) {
+      const int8_t* row = a.tab + static_cast<long long>(h0 + f) * D;
+      int mn = INT_MAX, mx = INT_MIN;
+      for (int d = threadIdx.x; d < D; d += HIST_THREADS) {
+        const int v = __ldg(row + d);
+        mn = min(mn, v);
+        mx = max(mx, v);
+      }
+      mn = __reduce_min_sync(0xffffffffu, mn);
+      mx = __reduce_max_sync(0xffffffffu, mx);
+      if (threadIdx.x % 32 == 0) {
+        atomicMin(&lo[f], mn);
+        atomicMax(&hi[f], mx);
+      }
+    }
+  }
+  static __device__ void publish(const Args& a, int h, int lo) { a.lo[h] = lo; }
+
+  const Args a;
+  Shared& sh;
+
+  __device__ TableSource(const Args& args, Shared& s, int /*span*/, int /*col*/) : a(args), sh(s) {}
+
+  __device__ __forceinline__ void stage(int f0, int fn, int col, int D) {
+    for (int f = threadIdx.x; f < fn; f += DT) sh.lo[f] = __ldg(a.lo + f0 + f);
+    // each thread reads back only its own column; a column past D takes lo_h, G row 0
+#pragma unroll 8
+    for (int f = 0; f < fn; ++f)
+      sh.ts[f][threadIdx.x] = col < D ? __ldg(a.tab + static_cast<long long>(f0 + f) * D + col)
+                                      : static_cast<int8_t>(__ldg(a.lo + f0 + f));
+  }
+
+  __device__ __forceinline__ int row(int f) const {
+    return static_cast<int>(sh.ts[f][threadIdx.x]) - sh.lo[f];
+  }
+};
+
+template <class Src>
+__global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
+    const int* __restrict__ x, typename Src::Args a, const int* __restrict__ labels,
+    int* __restrict__ G, int* __restrict__ ncls, int* __restrict__ span, int B, int H, int C,
+    int CP, int D) {
+  extern __shared__ int hs[];  // (HIST_F, T_MAX + 1, CP): bucket v at row v - lo + 1
+  __shared__ int lo[HIST_F], hi[HIST_F];
+  const int h0 = blockIdx.x * HIST_F, hn = min(HIST_F, H - h0);
+  Src::range(a, h0, hn, D, lo, hi);
   for (int i = threadIdx.x; i < HIST_F * (T_MAX + 1) * CP; i += HIST_THREADS) hs[i] = 0;
   __syncthreads();
+  if (static_cast<int>(threadIdx.x) < hn) {
+    atomicMax(span, hi[threadIdx.x] - lo[threadIdx.x] + 1);
+    Src::publish(a, h0 + threadIdx.x, lo[threadIdx.x]);
+  }
   for (int b = threadIdx.x; b < B; b += HIST_THREADS) {
     const int lab = __ldg(labels + b);
     if (lab < 0 || lab >= C) continue;  // out-of-range labels count nowhere
     const int* xr = x + static_cast<long long>(b) * H + h0;
     for (int f = 0; f < hn; ++f) {
-      const int v = min(max(__ldg(xr + f), -1), (1 << tbits[f]) - 1);
-      atomicAdd(&hs[(f * (T_MAX + 1) + v + 1) * CP + lab], 1);
+      // with lo = 0 known at compile time the clamp takes a constant lower bound,
+      // which measured faster on the H100 at large B
+      const int v = Src::LO_IS_ZERO ? min(max(__ldg(xr + f), -1), hi[f]) + 1
+                                    : min(max(__ldg(xr + f), lo[f] - 1), hi[f]) - lo[f] + 1;
+      atomicAdd(&hs[(f * (T_MAX + 1) + v) * CP + lab], 1);
     }
   }
   __syncthreads();
@@ -375,46 +660,35 @@ __global__ void __launch_bounds__(HIST_THREADS) hist_kernel(
     const int* cnt = hs + f * (T_MAX + 1) * CP + c;
     int* g = G + static_cast<long long>(h0 + f) * T_MAX * CP + c;
     int run = 0;
-    for (int t = (1 << tbits[f]) - 1; t >= 0; --t) {
+    for (int t = hi[f] - lo[f]; t >= 0; --t) {
       run += cnt[(t + 1) * CP];
       g[t * CP] = run;
     }
-    if (blockIdx.x == 0 && f == 0) ncls[c] = run + cnt[0];  // every bucket, -1 included
+    if (blockIdx.x == 0 && f == 0) ncls[c] = run + cnt[0];  // every bucket, lo - 1 included
   }
 }
 
-template <int CMAX>
+template <class Src, int CMAX>
 __global__ void __launch_bounds__(DT) gather_kernel(
-    const uint8_t* __restrict__ dir, const int* __restrict__ G, const int* __restrict__ ncls,
-    const unsigned* __restrict__ dir_or, int* __restrict__ sums, int H, int C, int CP, int D,
-    int h_per_block, long long skip) {
-  extern __shared__ int4 gs4[];  // a chunk of G: (features, T, CP)
-  __shared__ uint32_t planes[GATHER_MAX_F][PLANES];
+    typename Src::Args a, const int* __restrict__ G, const int* __restrict__ ncls,
+    const int* __restrict__ span, int* __restrict__ sums, int H, int C, int CP, int D,
+    int h_per_block) {
+  extern __shared__ int4 gs4[];  // a chunk of G: (features, span, CP)
+  __shared__ typename Src::Shared sh;
   const int* gs = reinterpret_cast<const int*>(gs4);
   const int col = blockIdx.x * DT + threadIdx.x;
   const int hb0 = blockIdx.y * h_per_block, hb1 = min(H, hb0 + h_per_block);
-  const int nb = 32 - __clz(*dir_or);  // threshold bits any row uses, <= 8
-  const int T = 1 << nb, row4 = T * CP / 4;  // int4 of one feature's G
-  const int fchunk = min(GATHER_MAX_F, GATHER_SMEM_INTS / (T * CP));
-  const uint32_t idx = static_cast<uint32_t>(skip + col);  // modulo 2**32
-  const uint32_t gray = idx ^ (idx >> 1);
+  const int R = __ldg(span);  // G rows any feature uses, <= T_MAX
+  const int row4 = R * CP / 4;  // int4 of one feature's G
+  const int fchunk = min(Src::MAX_F, GATHER_SMEM_INTS / (R * CP));
+  Src src(a, sh, R, col);
   int acc[CMAX];
 #pragma unroll
   for (int c = 0; c < CMAX; ++c) acc[c] = 0;
   for (int f0 = hb0; f0 < hb1; f0 += fchunk) {
     const int fn = min(fchunk, hb1 - f0);
     __syncthreads();  // the previous chunk is consumed
-    for (int f = threadIdx.x; f < fn; f += DT) {  // bit m of the 32 entries of a row
-      const uint8_t* row = dir + static_cast<long long>(f0 + f) * 32;
-      uint32_t p[PLANES] = {};
-      for (int j = 0; j < 32; ++j) {
-        const uint32_t e = row[j];
-#pragma unroll
-        for (int m = 0; m < PLANES; ++m) p[m] |= ((e >> m) & 1u) << j;
-      }
-#pragma unroll
-      for (int m = 0; m < PLANES; ++m) planes[f][m] = p[m];
-    }
+    src.stage(f0, fn, col, D);
     for (int i = threadIdx.x; i < fn * row4; i += DT) {
       const int f = i / row4;
       gs4[i] = __ldg(reinterpret_cast<const int4*>(G + static_cast<long long>(f0 + f) * T_MAX * CP) +
@@ -422,10 +696,7 @@ __global__ void __launch_bounds__(DT) gather_kernel(
     }
     __syncthreads();
     for (int f = 0; f < fn; ++f) {
-      uint32_t s = 0;
-#pragma unroll 4
-      for (int m = 0; m < nb; ++m) s |= static_cast<uint32_t>(__popc(planes[f][m] & gray) & 1) << m;
-      const int4* g = reinterpret_cast<const int4*>(gs + (f * T + static_cast<int>(s)) * CP);
+      const int4* g = reinterpret_cast<const int4*>(gs + (f * R + src.row(f)) * CP);
 #pragma unroll
       for (int q = 0; q < CMAX / 4; ++q) {
         if (4 * q < C) {  // uniform over the block
@@ -447,22 +718,44 @@ __global__ void __launch_bounds__(DT) gather_kernel(
   }
 }
 
-template <int CMAX>
-int launch_gather(const uint8_t* dir, const int* G, const int* ncls, const unsigned* dir_or,
-                  int* sums, int H, int C, int CP, int D, long long skip, cudaStream_t s) {
+template <class Src, int CMAX>
+int launch_gather(const typename Src::Args& a, const int* G, const int* ncls, const int* span,
+                  int* sums, int H, int C, int CP, int D, cudaStream_t s) {
   const int smem = GATHER_SMEM_INTS * static_cast<int>(sizeof(int));
   const cudaError_t attr = cudaFuncSetAttribute(
-      gather_kernel<CMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gather_kernel<Src, CMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  // split H so the grid holds about GATHER_BLOCKS blocks, at least 8 features a block
+  // split H so the grid holds about FILL_BLOCKS blocks, at least 8 features a block
   const int col_blocks = (D + DT - 1) / DT;
-  int splits = (GATHER_BLOCKS + col_blocks - 1) / col_blocks;
+  int splits = (FILL_BLOCKS + col_blocks - 1) / col_blocks;
   splits = max(1, min(splits, (H + 7) / 8));
   const int per = (H + splits - 1) / splits;
   splits = (H + per - 1) / per;
-  gather_kernel<CMAX><<<dim3(col_blocks, splits), DT, smem, s>>>(dir, G, ncls, dir_or, sums, H,
-                                                                 C, CP, D, per, skip);
+  gather_kernel<Src, CMAX><<<dim3(col_blocks, splits), DT, smem, s>>>(a, G, ncls, span, sums, H,
+                                                                      C, CP, D, per);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Both passes of the histogram form on `stream`: x (B, H) int32, labels (B,) int32, sums
+// (C, D) int32 zeroed by the caller; scratch G (H, 256, CP) int32 (written before it is
+// read), ncls (C,) int32, span one int32 set to 0.
+template <class Src>
+int launch_hist_form(const int* x, const typename Src::Args& a, const int* labels, int* sums,
+                     int* G, int* ncls, int* span, int B, int H, int C, int D, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int CP = (C + 3) / 4 * 4;
+  if (C <= 0 || CP > HIST_MAX_CP) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());  // sums stay 0
+  const int hsm = hist_smem_bytes(CP);
+  const cudaError_t attr =
+      cudaFuncSetAttribute(hist_kernel<Src>, cudaFuncAttributeMaxDynamicSharedMemorySize, hsm);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  hist_kernel<Src><<<(H + HIST_F - 1) / HIST_F, HIST_THREADS, hsm, s>>>(x, a, labels, G, ncls,
+                                                                       span, B, H, C, CP, D);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (CP <= 16) return launch_gather<Src, 16>(a, G, ncls, span, sums, H, C, CP, D, s);
+  return launch_gather<Src, HIST_MAX_CP>(a, G, ncls, span, sums, H, C, CP, D, s);
 }
 
 int table_vec(const void* tab, int tab_bytes, int D) {
@@ -488,7 +781,8 @@ int uhd_encode_bundle(const int* x, const void* tab, int tab_bytes, int* out, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// As above, plus labels (B,) int32; sums (C, D) int32, zeroed by the caller.
+// As above, plus labels (B,) int32; sums (C, D) int32, zeroed by the caller.  The direct
+// form: 2*B*H*D compares.
 int uhd_fit_bundle(const int* x, const void* tab, int tab_bytes, const int* labels, int* sums,
                    int B, int H, int C, int D, void* stream) {
   const int vec = table_vec(tab, tab_bytes, D);
@@ -503,12 +797,23 @@ int uhd_fit_bundle(const int* x, const void* tab, int tab_bytes, const int* labe
   return static_cast<int>(cudaGetLastError());
 }
 
+// The class-histogram form of uhd_fit_bundle, for an int8 table and C <= HIST_MAX_CP
+// classes: x (B, H) int32, tab (H, D) int8 row-major, labels (B,) int32, sums (C, D)
+// int32 zeroed by the caller; scratch from the caller: G (H, 256, CP) int32 with CP = C
+// rounded up to 4, ncls (C,) int32, lo (H,) int32, span one int32 set to 0.  Two
+// launches on `stream`.  Returns cudaGetLastError().
+int uhd_fit_bundle_hist(const int* x, const void* tab, const int* labels, int* sums, int* G,
+                        int* ncls, int* lo, int* span, int B, int H, int C, int D, void* stream) {
+  return launch_hist_form<TableSource>(x, {static_cast<const int8_t*>(tab), lo}, labels, sums, G,
+                                       ncls, span, B, H, C, D, stream);
+}
+
 // x (B, H) int32; dir (H, 32) unsigned entries of dir_bytes bytes; out (B, D) int32.
 // Returns cudaGetLastError().
 int uhd_encode_bundle_dynamic(const int* x, const void* dir, int dir_bytes, int* out,
                               int B, int H, int D, long long skip, void* stream) {
-  launch_encode<Generated>(x, {dir, dir_bytes, skip}, out, B, H, D, stream);
-  return static_cast<int>(cudaGetLastError());
+  return launch_encode_dynamic(x, {dir, dir_bytes, skip}, out, B, H, D,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // As above, plus labels (B,) int32; sums (C, D) int32, zeroed by the caller.
@@ -519,29 +824,16 @@ int uhd_fit_bundle_dynamic(const int* x, const void* dir, int dir_bytes, const i
   return static_cast<int>(cudaGetLastError());
 }
 
-// The histogram form of uhd_fit_bundle_dynamic, for a uint8 direction matrix and
-// C <= HIST_MAX_CP classes: x (B, H) int32, dir (H, 32) uint8, labels (B,) int32,
-// sums (C, D) int32 zeroed by the caller; scratch from the caller: G (H, 256, CP) int32
-// with CP = C rounded up to 4 (written before it is read), ncls (C,) int32, dir_or one
-// uint32 set to 0.  Two launches on `stream`.  Returns cudaGetLastError().
+// The class-histogram form of uhd_fit_bundle_dynamic, for a uint8 direction matrix and
+// C <= HIST_MAX_CP classes: x (B, H) int32, dir (H, 32) uint8, labels (B,) int32, sums
+// (C, D) int32 zeroed by the caller; scratch from the caller: G (H, 256, CP) int32,
+// ncls (C,) int32, span one int32 set to 0.  Two launches on `stream`.  Returns
+// cudaGetLastError().
 int uhd_fit_bundle_dynamic_hist(const int* x, const void* dir, const int* labels, int* sums,
-                                int* G, int* ncls, unsigned* dir_or, int B, int H, int C, int D,
+                                int* G, int* ncls, int* span, int B, int H, int C, int D,
                                 long long skip, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int CP = (C + 3) / 4 * 4;
-  if (C <= 0 || CP > HIST_MAX_CP) return static_cast<int>(cudaErrorInvalidValue);
-  if (B <= 0 || H <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());  // sums stay 0
-  const int hsm = hist_smem_bytes(CP);
-  const cudaError_t attr =
-      cudaFuncSetAttribute(hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, hsm);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  const uint8_t* d8 = static_cast<const uint8_t*>(dir);
-  hist_kernel<<<(H + HIST_F - 1) / HIST_F, HIST_THREADS, hsm, s>>>(x, d8, labels, G, ncls, dir_or,
-                                                                  B, H, C, CP);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (CP <= 16) return launch_gather<16>(d8, G, ncls, dir_or, sums, H, C, CP, D, skip, s);
-  return launch_gather<HIST_MAX_CP>(d8, G, ncls, dir_or, sums, H, C, CP, D, skip, s);
+  return launch_hist_form<DirSource>(x, {static_cast<const uint8_t*>(dir), skip}, labels, sums,
+                                     G, ncls, span, B, H, C, D, stream);
 }
 
 }  // extern "C"

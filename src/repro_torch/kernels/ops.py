@@ -13,8 +13,8 @@ driving each path and reads them after, to show that the path ran
 through the kernels and to price each shape's launches.  One call of
 ``hamming_topk`` is one scan launch plus its merge passes, one call of
 ``hamming_packed`` one launch per 1,048,560 rows, and one call of
-``fit_bundle_dynamic`` on its histogram path a histogram and a gather
-launch; each counts as one.
+``fit_bundle`` or ``fit_bundle_dynamic`` on its histogram path a
+histogram and a gather launch; each counts as one.
 """
 
 from __future__ import annotations
@@ -42,9 +42,10 @@ LAUNCH_SHAPES: dict[str, dict[str, int]] = {name: {} for name in LAUNCHES}
 _MAX_ENCODE_ROWS = 65535 * 32
 _MAX_MXU_COLS = 65535 * 64
 _MAX_FIT_ROWS = 65535 * 128
-#: the histogram form of fit_bundle_dynamic: its thresholds lie in [0, 256) (uint8 direction
-#: entries), a histogram block holds (4, 257, C rounded up to 4) int32 counts in shared
-#: memory (at most 48 classes), and G, (H, 256, C rounded up to 4) int32, is scratch
+#: the histogram form of fit_bundle and fit_bundle_dynamic: each feature's thresholds span
+#: at most 256 values (int8 table entries, uint8 direction entries), a histogram block holds
+#: (4, 257, C rounded up to 4) int32 counts in shared memory (at most 48 classes), and G,
+#: (H, 256, C rounded up to 4) int32, is scratch
 HIST_MAX_CLASSES = 48
 HIST_MAX_SCRATCH_BYTES = 256 * 2**20
 _DIR_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
@@ -157,12 +158,39 @@ def encode_bundle(x_q: torch.Tensor, sobol_q: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _hist_fits(n_features: int, n_classes: int) -> bool:
+    cp = -(-n_classes // 4) * 4
+    return 0 < n_classes <= HIST_MAX_CLASSES and n_features * 256 * cp * 4 <= HIST_MAX_SCRATCH_BYTES
+
+
+def _hist_scratch(h: int, n_classes: int, dev: torch.device):
+    """The histogram form's scratch: G (H, 256, C rounded up to 4), n_c (C,)
+    and the span word (zeroed), all int32."""
+    cp = -(-n_classes // 4) * 4
+    return (torch.empty((h, 256, cp), dtype=torch.int32, device=dev),
+            torch.empty(n_classes, dtype=torch.int32, device=dev),
+            torch.zeros(1, dtype=torch.int32, device=dev))
+
+
+def fit_table_path(table_dtype: torch.dtype, n_features: int, n_classes: int) -> str:
+    """Which form of the table training kernel runs, from dtypes and
+    shapes alone: ``"histogram"`` (class sums from per-class threshold
+    histograms, each feature bucketed over its row's [min, max]) for an
+    int8 table, at most ``HIST_MAX_CLASSES`` classes and a histogram
+    scratch within ``HIST_MAX_SCRATCH_BYTES``; else ``"direct"`` (the
+    compare-and-count kernel).  Both give the same integers."""
+    return "histogram" if table_dtype == torch.int8 and _hist_fits(n_features, n_classes) \
+        else "direct"
+
+
 def fit_bundle(
     x_q: torch.Tensor, sobol_q: torch.Tensor, labels: torch.Tensor, n_classes: int
 ) -> torch.Tensor:
     """Fused training step over a stored threshold table, (B, H), (H, D)
     int8 or int32, (B,) -> (C, D) int32 class sums; labels outside
-    [0, n_classes) contribute nothing.  Semantics: ``ref.fit_bundle``."""
+    [0, n_classes) contribute nothing.  On a card it runs the histogram
+    form or the direct form, as :func:`fit_table_path` says.
+    Semantics: ``ref.fit_bundle``."""
     if _on_cpu(x_q, sobol_q, labels):
         return ref.fit_bundle(x_q, sobol_q, labels, n_classes)
     x = x_q.to(torch.int32).contiguous()
@@ -175,13 +203,22 @@ def fit_bundle(
     if b > _MAX_FIT_ROWS:
         raise ValueError(f"fit_bundle takes at most {_MAX_FIT_ROWS} rows, got {b}")
     sums = torch.zeros((n_classes, d), dtype=torch.int32, device=x.device)
+    path = fit_table_path(tab.dtype, h, n_classes)
     with torch.cuda.device(x.device):
-        err = _build.library().uhd_fit_bundle(
-            _ptr(x), _ptr(tab), tab_bytes, _ptr(lab), _ptr(sums), b, h, n_classes, d,
-            _stream(x.device),
-        )
+        if path == "histogram":
+            g, ncls, span = _hist_scratch(h, n_classes, x.device)
+            lo = torch.empty(h, dtype=torch.int32, device=x.device)
+            err = _build.library().uhd_fit_bundle_hist(
+                _ptr(x), _ptr(tab), _ptr(lab), _ptr(sums), _ptr(g), _ptr(ncls), _ptr(lo),
+                _ptr(span), b, h, n_classes, d, _stream(x.device),
+            )
+        else:
+            err = _build.library().uhd_fit_bundle(
+                _ptr(x), _ptr(tab), tab_bytes, _ptr(lab), _ptr(sums), b, h, n_classes, d,
+                _stream(x.device),
+            )
     _check(err, "fit_bundle")
-    _launched("fit_bundle", B=b, H=h, C=n_classes, D=d, table=_dtype_name(tab))
+    _launched("fit_bundle", B=b, H=h, C=n_classes, D=d, table=_dtype_name(tab), path=path)
     return sums
 
 
@@ -198,8 +235,9 @@ def encode_bundle_dynamic(
     if b > _MAX_ENCODE_ROWS:
         raise ValueError(f"encode_bundle_dynamic takes at most {_MAX_ENCODE_ROWS} rows, got {b}")
     out = torch.empty((b, d), dtype=torch.int32, device=x.device)
+    lib = _build.library()
     with torch.cuda.device(x.device):
-        err = _build.library().uhd_encode_bundle_dynamic(
+        err = lib.uhd_encode_bundle_dynamic(
             _ptr(x), _ptr(dirs), dir_bytes, _ptr(out), b, h, d, int(skip),
             _stream(x.device),
         )
@@ -215,9 +253,8 @@ def fit_dynamic_path(direction_dtype: torch.dtype, n_features: int, n_classes: i
     ``HIST_MAX_CLASSES`` classes and a histogram scratch within
     ``HIST_MAX_SCRATCH_BYTES``; else ``"direct"`` (the compare-and-count
     kernel).  Both give the same integers."""
-    cp = -(-n_classes // 4) * 4
-    fits = 0 < n_classes <= HIST_MAX_CLASSES and n_features * 256 * cp * 4 <= HIST_MAX_SCRATCH_BYTES
-    return "histogram" if direction_dtype == torch.uint8 and fits else "direct"
+    return "histogram" if direction_dtype == torch.uint8 and _hist_fits(n_features, n_classes) \
+        else "direct"
 
 
 def fit_bundle_dynamic(
@@ -242,13 +279,10 @@ def fit_bundle_dynamic(
     path = fit_dynamic_path(dirs.dtype, h, n_classes)
     with torch.cuda.device(x.device):
         if path == "histogram":
-            cp = -(-n_classes // 4) * 4
-            g = torch.empty((h, 256, cp), dtype=torch.int32, device=x.device)
-            ncls = torch.empty(n_classes, dtype=torch.int32, device=x.device)
-            dir_or = torch.zeros(1, dtype=torch.int32, device=x.device)
+            g, ncls, span = _hist_scratch(h, n_classes, x.device)
             err = _build.library().uhd_fit_bundle_dynamic_hist(
                 _ptr(x), _ptr(dirs), _ptr(lab), _ptr(sums), _ptr(g), _ptr(ncls),
-                _ptr(dir_or), b, h, n_classes, d, int(skip), _stream(x.device),
+                _ptr(span), b, h, n_classes, d, int(skip), _stream(x.device),
             )
         else:
             err = _build.library().uhd_fit_bundle_dynamic(

@@ -53,7 +53,6 @@ class TrainResult:
     eval_s: float  # evaluate wall seconds
     round_trip_ok: bool | None  # None without --save-dir
     baseline_accs: list[float] = dataclasses.field(default_factory=list)
-    baseline_models: list[HDCModel] = dataclasses.field(default_factory=list)
 
 
 def _sync(device: torch.device) -> None:
@@ -61,8 +60,14 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def train(args) -> TrainResult:
-    """Train, evaluate and (with ``args.save_dir``) checkpoint one model."""
+def train(args, on_retrain=None) -> TrainResult:
+    """Train, evaluate and (with ``args.save_dir``) checkpoint one model.
+
+    With ``args.compare_baseline``, ``on_retrain(i, model)``, when given,
+    sees each retrained baseline model as it is trained.  No retrained
+    model is kept: each holds its codebooks and, on a card, their cached
+    [P == L] operand (109 MB at D = 8192), so keeping them would grow
+    with ``--baseline-iters``."""
     device = resolve_device(args.device)
     ds = load_dataset(args.dataset, n_train=args.n_train, n_test=args.n_test)
     tag = " (synthetic)" if ds.synthetic else ""
@@ -120,7 +125,7 @@ def train(args) -> TrainResult:
         result.baseline_accs = baseline_iterative_search(
             cfg, ds.train_images, ds.train_labels, ds.test_images, ds.test_labels,
             iterations=args.baseline_iters, batch_size=args.batch_size, device=device,
-            on_model=lambda i, m: result.baseline_models.append(m),
+            on_model=on_retrain,
         )
         accs = result.baseline_accs
         print(

@@ -585,6 +585,37 @@ def test_baseline_operand_cache_entry_goes_with_its_codebooks():
     assert len(cache._entries) == n - 1
 
 
+def test_train_compare_baseline_keeps_no_retrained_model_or_operand():
+    """``train_hdc --compare-baseline`` hands each retrain to ``on_retrain`` and
+    keeps none: after it returns, no retrained model, codebook or [P == L]
+    cache entry of one is alive (each would hold 109 MB of O' on a card at
+    D = 8192)."""
+    import gc
+    import weakref
+
+    args = ttrain.parser().parse_args([
+        "--device", "cpu", "--d", "256", "--n-train", "256", "--n-test", "64",
+        "--batch-size", "128", "--encoder", "baseline", "--compare-baseline",
+        "--baseline-iters", "3",
+    ])
+    cache = tenc.BASELINE_OPERANDS
+    seen, books = [], []
+
+    def on_retrain(i, model):
+        seen.append((i, weakref.ref(model)))
+        books.append(tuple(weakref.ref(model.codebooks[k]) for k in ("p", "level")))
+        assert (id(model.codebooks["p"]), id(model.codebooks["level"])) in cache._entries
+
+    result = ttrain.train(args, on_retrain=on_retrain)
+    assert [i for i, _ in seen] == [0, 1, 2] and len(result.baseline_accs) == 3
+    assert not hasattr(result, "baseline_models")
+    gc.collect()
+    assert all(ref() is None for _, ref in seen)
+    assert all(p() is None and level() is None for p, level in books)
+    # an entry goes with its P: none is left whose codebooks are gone
+    assert all(entry[0]() is not None for entry in cache._entries.values())
+
+
 def _tree(root: Path) -> dict[str, bytes]:
     return {str(f.relative_to(root)): f.read_bytes() for f in sorted(root.rglob("*")) if f.is_file()}
 

@@ -191,10 +191,14 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "b,h,d,skip,levels",
-    [(64, 784, 8192, 1, 16), (37, 100, 1000, 1000, 16), (5, 49, 300, 2**32 - 3, 2),
-     (33, 113, 257, 0, 256), (9, 40, 200, 3, 2**16)],
+    [(64, 784, 8192, 1, 16), (64, 784, 2048, 1 + 2048, 16), (64, 784, 2040, 1 + 2040, 16),
+     (65, 784, 8192, 1, 16), (2048, 784, 8192, 1, 16), (64, 784, 2048, 2**32 - 5, 16),
+     (37, 100, 1000, 1000, 16), (5, 49, 300, 2**32 - 3, 2), (33, 113, 257, 0, 256),
+     (9, 40, 200, 3, 2**16), (3, 5, 33, 7, 16)],
 )
 def test_cuda_encode_bundle_dynamic_equals_plain(cuda, b, h, d, skip, levels):
+    # the D-shard widths, two row tiles (B = 65), B = 2048 (no H split), skips near
+    # 2**32, thresholds of 8 and 16 bits (the int32 compares), and H below one split
     x, _, dirs = _inputs(b + h, b, h, levels=levels)
     xt, dt = torch.from_numpy(x).to(cuda), torch.from_numpy(dirs).to(cuda)
     got = tops.encode_bundle_dynamic(xt, dt, d, skip=skip)

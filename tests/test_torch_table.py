@@ -524,6 +524,101 @@ def test_cuda_fit_bundle_equals_plain(cuda, b, h, d, c, levels):
     assert torch.equal(got, tref.fit_bundle(xt, st, lt, c))
 
 
+@pytest.mark.parametrize(
+    "dtype,h,c,want",
+    [(torch.int8, 784, 10, "histogram"), (torch.int8, 113, 48, "histogram"),
+     (torch.int8, 784, 49, "direct"), (torch.int8, 784, 0, "direct"),
+     (torch.int32, 784, 10, "direct"), (torch.int16, 49, 2, "direct"),
+     (torch.int8, 2**16, 4, "histogram"), (torch.int8, 2**16 + 1, 4, "direct")],
+)
+def test_fit_table_path_chooses_from_dtype_and_shape(dtype, h, c, want):
+    # int8 entries span at most 256 thresholds a row; a histogram block holds (4, 257, C
+    # rounded up to 4) counts, and G = (H, 256, C rounded up to 4) int32 stays within 256 MiB
+    assert tops.fit_table_path(dtype, h, c) == want
+
+
+def _fit_by_histogram(x, tab, labels, n_classes):
+    """Kernel 3's class-histogram form in plain torch: x[:, h] bucketed as
+    clamp(x, lo_h - 1, hi_h) over its table row's [min, max], counted per
+    class, suffix-summed to G[c, h, j] = #{b labelled c : x[b, h] >= lo_h + j},
+    then sums[c, d] = sum_h (2 * G[c, h, S[h, d] - lo_h] - n_c)."""
+    s = tab.to(torch.int64)
+    lab = labels.to(torch.int64)
+    keep = (lab >= 0) & (lab < n_classes)
+    x, lab = x.to(torch.int64)[keep], lab[keep]
+    h, d = s.shape
+    lo, hi = s.min(1).values, s.max(1).values
+    v = torch.minimum(torch.maximum(x, lo - 1), hi) - (lo - 1)  # buckets 0 .. hi - lo + 1
+    counts = torch.zeros((n_classes, h, 258), dtype=torch.int64)
+    counts.index_put_((lab[:, None].expand_as(v), torch.arange(h).expand_as(v), v),
+                      torch.ones_like(v), accumulate=True)
+    g = counts.flip(-1).cumsum(-1).flip(-1)[:, :, 1:]  # G[c, h, j]: buckets above j
+    n_c = torch.bincount(lab, minlength=n_classes)
+    picked = g.gather(2, (s - lo[:, None])[None].expand(n_classes, h, d))
+    return (2 * picked.sum(1) - h * n_c[:, None]).to(torch.int32)
+
+
+def _full_range_case(seed: int, b: int, h: int, d: int, n_classes: int):
+    """An int8 table whose entries span [-128, 127] (a constant row, a row at
+    each extreme), x outside every row's range, labels -1 and C."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(-128, 128, (h, d)).astype(np.int8)
+    table[0] = 5
+    table[1 % h, : d // 2] = -128
+    table[2 % h, d // 3 :] = 127
+    x = rng.integers(-300, 300, (b, h)).astype(np.int32)
+    x[::3, ::4] = rng.integers(-2**31, 2**31, x[::3, ::4].shape)
+    x[1::5, 1] = 2**31 - 1
+    x[2::5, 2 % h] = -2**31
+    labels = rng.integers(0, n_classes, b).astype(np.int32)
+    labels[::7] = -1
+    labels[3::11] = n_classes
+    return x, labels, table
+
+
+@pytest.mark.parametrize(
+    "b,h,d,c", [(37, 100, 1000, 10), (33, 113, 257, 26), (65, 30, 130, 3), (1, 5, 33, 2),
+                (300, 49, 300, 48)],
+)
+def test_histogram_identity_equals_plain_fit_bundle(b, h, d, c):
+    x, labels, table = _full_range_case(b + h + d, b, h, d, c)
+    args = (torch.from_numpy(x), torch.from_numpy(table), torch.from_numpy(labels), c)
+    assert torch.equal(_fit_by_histogram(*args), tref.fit_bundle(*args))
+    # a Sobol table (levels 16: thresholds in [0, 16)) takes the same identity
+    x, labels, table = _table_inputs(b * 3 + h, b, h, d, 16, n_classes=c)
+    args = (torch.from_numpy(x), torch.from_numpy(table), torch.from_numpy(labels), c)
+    assert torch.equal(_fit_by_histogram(*args), tref.fit_bundle(*args))
+
+
+# (B, H, D, C, full-range int8 entries): ragged B, H and D, C = 26 and 48, the D-shard
+# batches of the (2, 4) mesh at 2048 and 2040 columns (rows not 16-byte aligned)
+_FIT_TABLE_CASES = [
+    (37, 100, 1000, 10, True), (33, 113, 257, 26, True), (65, 30, 130, 3, True),
+    (1, 5, 33, 2, True), (300, 49, 300, 48, True), (256, 784, 2048, 10, False),
+    (256, 784, 2040, 10, False), (256, 784, 2040, 10, True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["histogram", "direct"])
+@pytest.mark.parametrize("b,h,d,c,full", _FIT_TABLE_CASES)
+def test_cuda_fit_bundle_both_paths_equal_plain(cuda, path, b, h, d, c, full):
+    if full:
+        x, labels, table = _full_range_case(b + h + d, b, h, d, c)
+    else:
+        x, labels, table = _table_inputs(b + d, b, h, d, 16, n_classes=c)
+    if path == "direct":  # the same entries, wider: the compare-and-count kernel
+        table = table.astype(np.int32)
+    xt, st, lt = (torch.from_numpy(a).to(cuda) for a in (x, table, labels))
+    assert tops.fit_table_path(st.dtype, h, c) == path
+    tops.reset_launches()
+    got = tops.fit_bundle(xt, st, lt, c)
+    torch.cuda.synchronize()
+    assert list(tops.LAUNCH_SHAPES["fit_bundle"]) == [
+        f"B={b} H={h} C={c} D={d} table={table.dtype} path={path}"]
+    assert torch.equal(got, tref.fit_bundle(xt, st, lt, c))
+
+
 @pytest.mark.cuda
 def test_cuda_uhd_model_and_item_memory_equal_the_cpu(cuda):
     ds = tload("synth_mnist", n_train=256, n_test=64)
