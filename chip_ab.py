@@ -1,0 +1,144 @@
+#!/usr/bin/env python3
+"""A/B of the port's CUDA kernels between two checkouts, on one card, in one call.
+
+    git archive <commit> src/repro_torch | tar -x -C build/parent   # a git-ignored directory
+    python3 chip_ab.py build/parent [--rounds 2]
+
+Each side runs in a process of its own that imports its own ``repro_torch``
+(from ``<root>/src``) and builds its own kernels (into ``<root>/build``).  The
+sides alternate, other then this, then this then other, for each round, so
+that drift on the card falls on both.  A worker calls the public wrappers
+(``repro_torch.kernels.ops``) at the main paths' shapes on inputs made from a
+fixed seed, holds each result against its plain version, and times it with
+``chip_smoke.device_ms`` (``torch.profiler``, 20 calls, a profile that missed
+launches taken again), by kernel name.  ``hamming_topk_select`` runs kernel 5
+with its selection scan forced at a shape ``ops.topk_path`` sends to the warp
+path, to price the warp path against it.  Printed:
+the card's ``nvidia-smi`` name and power limit, one JSON line per side, round
+and case, then one summary line per case with each side's mean device ms and
+the ratio this / other.  Exits non-zero without a card or if any output
+differs from its plain version.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# (case, shape): the shapes the main paths launch (chip_smoke.py's kernels line)
+CASES = [
+    ("encode_bundle", dict(B=64, H=784, D=8192)),
+    ("encode_bundle", dict(B=64, H=784, D=2048)),
+    ("encode_bundle", dict(B=64, H=784, D=2040)),
+    ("encode_bundle", dict(B=1024, H=784, D=8192)),
+    ("encode_bundle_dynamic", dict(B=64, H=784, D=8192)),
+    ("encode_bundle_dynamic", dict(B=64, H=784, D=2048)),
+    ("encode_bundle_dynamic", dict(B=64, H=784, D=2040)),
+    ("encode_bundle_dynamic", dict(B=1024, H=784, D=8192)),
+    ("fit_bundle_int32", dict(B=512, H=784, D=8192, C=10)),
+    ("hamming_topk", dict(B=64, C=10, W=256, k=1)),
+    ("hamming_topk_select", dict(B=64, C=10, W=256, k=1)),
+    *[("hamming_topk", dict(B=64, C=65548, W=256, k=k)) for k in (8, 33, 300, 1000)],
+]
+
+
+def worker(src: Path) -> int:
+    """Time every case with the repro_torch under `src`; one JSON line each."""
+    sys.path.insert(0, str(src))
+    import torch
+
+    from chip_smoke import device_ms
+    from repro_torch.core import sobol
+    from repro_torch.kernels import ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    topk_path = ops.topk_path
+
+    def table(h, d, levels, dtype):
+        t = sobol.sobol_table_for_features(h, d, levels, seed=0)
+        return torch.from_numpy(t.astype(dtype)).to(dev)
+
+    dirs = torch.from_numpy(sobol.quantized_direction_matrix(784, 16, seed=0)).to(dev)
+    ok = True
+    for name, shape in CASES:
+        i32 = dict(generator=gen, device=dev, dtype=torch.int32)
+        if name == "encode_bundle":
+            x = torch.randint(0, 17, (shape["B"], shape["H"]), **i32)
+            tab = table(shape["H"], shape["D"], 16, "int8")
+            fn, plain = (lambda: ops.encode_bundle(x, tab)), (lambda: [ref.encode_bundle(x, tab)])
+        elif name == "encode_bundle_dynamic":
+            x = torch.randint(0, 17, (shape["B"], shape["H"]), **i32)
+            d = shape["D"]
+            fn = lambda: ops.encode_bundle_dynamic(x, dirs, d)  # noqa: E731
+            plain = lambda: [ref.encode_bundle_dynamic(x, dirs, d)]  # noqa: E731
+        elif name == "fit_bundle_int32":  # the direct form: an int32 table (levels 256)
+            x = torch.randint(0, 257, (shape["B"], shape["H"]), **i32)
+            tab = table(shape["H"], shape["D"], 256, "int32")
+            lab = torch.randint(0, shape["C"], (shape["B"],), **i32)
+            fn = lambda: ops.fit_bundle(x, tab, lab, 10)  # noqa: E731
+            plain = lambda: [ref.fit_bundle(x, tab, lab, 10)]  # noqa: E731
+        else:
+            q = torch.randint(-2**31, 2**31 - 1, (shape["B"], shape["W"]), **i32)
+            r = torch.randint(-2**31, 2**31 - 1, (shape["C"], shape["W"]), **i32)
+            k = shape["k"]
+            fn = lambda: ops.hamming_topk(q, r, 32 * shape["W"], k)  # noqa: E731
+            plain = lambda: ref.hamming_topk(q, r, 32 * shape["W"], k)  # noqa: E731
+        # the wrapper reads ops.topk_path at each call
+        ops.topk_path = (lambda *_: "select") if name == "hamming_topk_select" else topk_path
+        ops.reset_launches()
+        got = fn()
+        got = list(got) if isinstance(got, tuple) else [got]
+        equal = all(torch.equal(g, w) for g, w in zip(got, plain()))
+        ok &= equal
+        keys = [k for v in ops.LAUNCH_SHAPES.values() for k in v]
+        rows: list = []
+        ms = device_ms(torch, fn, 20, rows)
+        print(json.dumps({"case": name, "shape": shape, "equal": equal, "keys": keys,
+                          "device_ms": ms, "rows": rows}), flush=True)
+    return 0 if ok else 1
+
+
+def main(argv: list[str]) -> int:
+    if "--worker" in argv:
+        return worker(Path(argv[argv.index("--worker") + 1]))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device; this script runs on a card", file=sys.stderr)
+        return 1
+    other = Path(argv[0]).resolve()
+    rounds = int(argv[argv.index("--rounds") + 1]) if "--rounds" in argv else 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    sides = {"other": other / "src", "this": ROOT / "src"}
+    times: dict[str, dict[str, list[float]]] = {}
+    failed = False
+    for rnd in range(rounds):
+        for side in ("other", "this", "this", "other"):
+            out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
+                                  str(sides[side])], capture_output=True, text=True, cwd=ROOT)
+            failed |= out.returncode != 0
+            for line in out.stdout.splitlines():
+                r = json.loads(line)
+                key = f'{r["case"]} {" ".join(f"{k}={v}" for k, v in r["shape"].items())}'
+                if isinstance(r["device_ms"], float):
+                    times.setdefault(key, {"other": [], "this": []})[side].append(r["device_ms"])
+                print(json.dumps({"side": side, "round": rnd, **r}), flush=True)
+            if out.returncode != 0:
+                print(out.stderr[-4000:], file=sys.stderr)
+    for key, t in times.items():
+        ratio = (sum(t["this"]) / len(t["this"])) / (sum(t["other"]) / len(t["other"])) \
+            if t["this"] and t["other"] else None
+        print(json.dumps({"summary": key, "other_ms": t["other"], "this_ms": t["this"],
+                          "this_over_other": ratio}), flush=True)
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main(sys.argv[1:]))

@@ -17,7 +17,11 @@ Phases, each printed as one JSON object per line:
    device's share alone); for the table encode, ``hamming_packed`` and
    ``encode_unary_mxu``, one ``torch._int_mm`` call computing the same result,
    and for ``bundle_binarize`` one int32 ``index_add_``, is timed beside it as
-   the library yardstick (the port never calls them);
+   the library yardstick (the port never calls them); each bound is the largest of
+   the bytes, the int32 operations and the popcounts over their rates, beside the
+   count PR 16 used where it differs (``bound_ms_pr16``, ``bound_ms_direct_form``);
+   the top-k store search's device time split into its scan and merge launches
+   (``kernel_split``);
 4. slice: ``repro_torch.launch.serve_hdc``'s smoke at the JAX smoke's
    configuration (synth_mnist, d=8192, levels=16, 1024 training images, 256
    requests in batches of 64), once with ``uhd_dynamic`` and once with ``uhd``,
@@ -285,9 +289,12 @@ JAX_BASELINE_TRAIN_LABELS = {
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).  Compare-count
 # and popcount work runs on the CUDA cores: 64 int32 lanes an SM against 128 fp32
 # lanes and no fused multiply-add, so the int32 issue rate is a quarter of the
-# 67 TFLOP/s fp32 rate.  A popcount is counted as one op at that rate.
+# 67 TFLOP/s fp32 rate.  Popcounts issue on a pipe of their own at 16 results a clock
+# an SM (compute capability 9.0, the CUDA C++ Programming Guide's table of arithmetic
+# instruction throughput), a quarter of the 64 int32 lanes at the same clock.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
+POPC_PER_S = INT32_OPS_PER_S * 16 / 64
 # The int8 tensor cores' dense rate (the same data sheet), for the binary matmul of
 # encode_unary_mxu: a multiply and an add of the int8 product count as 2 ops.
 INT8_TC_OPS_PER_S = 1979e12
@@ -397,41 +404,106 @@ def time_ms(torch, fn, iters: int) -> float:
 
 def device_ms(torch, fn, iters: int, rows: list | None = None):
     """Device time per call of fn: the self time of the kernels and copies
-    it ran, summed over `iters` calls under ``torch.profiler``.  Unlike
-    ``time_ms`` it leaves out the host's share of a call, which is what a
-    launch-bound kernel's event time measures.  With `rows`, appends each
-    device row's name and ms a call to it."""
-    from torch.profiler import ProfilerActivity, profile
+    it ran over `iters` calls under ``torch.profiler``, a call's share.
+    Unlike ``time_ms`` it leaves out the host's share of a call, which is
+    what a launch-bound kernel's event time measures.  Each profile traces
+    one warm-up call first and drops it (the profiler's schedule).  The
+    profiler can miss launches: every call of fn runs the same kernels, so
+    each device row should count n * `iters` launches; a row within a tenth
+    of a call's worth of that (n >= 1) is priced as n launches at its mean,
+    and a profile with a row further off, or with no row, is not used.  Up
+    to six profiles are taken until three are used, and the median of their
+    totals is returned, or "not measured" where none was used.  With `rows`,
+    appends each device row's name, ms a call and calls a call in the median
+    profile (or in the last one, marked ``partial``) to it."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    def priced(found):
+        per_call = [max(1, round(n / iters)) for _, _, n in found]
+        if not found or any(abs(n - c * iters) > iters // 10 for (_, _, n), c in zip(found, per_call)):
+            return None
+        return [(k, t / n * c, n / iters) for (k, t, n), c in zip(found, per_call)]
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    used, last = [], []
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-    found = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        found = [(e.key, e.self_device_time_total, e.count) for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0 and not e.key.startswith("ProfilerStep")]
+        last = [(k, t / iters, n / iters) for k, t, n in found]
+        if (p := priced(found)) is not None:
+            used.append(p)
+            if len(used) == 3:
+                break
+    best = sorted(used, key=lambda p: sum(t for _, t, _ in p))[len(used) // 2] if used else last
     if rows is not None:
-        rows.extend({"name": k[:70], "ms": t / iters / 1e3}
-                    for k, t in sorted(found, key=lambda r: -r[1]))
-    total_us = sum(t for _, t in found)
-    return total_us / iters / 1e3 if total_us else "not measured"
+        rows.extend({"name": k[:70], "ms": t / 1e3, "calls": c, **({} if used else {"partial": True})}
+                    for k, t, c in sorted(best, key=lambda r: -r[1]))
+    return sum(t for _, t, _ in best) / 1e3 if used else "not measured"
 
 
-def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = INT32_OPS_PER_S) -> tuple[float, str]:
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
+def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = INT32_OPS_PER_S,
+             n_popc: float = 0) -> tuple[float, str]:
+    """The least time for the work, in ms: the largest of the bytes over the memory
+    rate, the operations over their rate, and the popcounts over the popcount pipe's."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, max(n_ops / ops_per_s, n_popc / POPC_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def encode_dynamic_ops(b: int, h: int, d: int, nb: int) -> int:
-    """The integer operations encode_bundle_dynamic's kernel issues: where the
-    thresholds have at most 7 bits it counts four rows in the bytes of one word
-    with an add, a shift, a mask and an accumulate (4 int32 ops a word, B*H*D/4
+def encode_dynamic_ops(b: int, h: int, d: int, nb: int) -> tuple[int, int]:
+    """The integer operations and popcounts encode_bundle_dynamic's kernel issues:
+    where the thresholds have at most 7 bits it counts four rows in the bytes of one
+    word with an add, a shift, a mask and an accumulate (4 int32 ops a word, B*H*D/4
     words); wider thresholds take a compare and an add a row (2*B*H*D).  Plus nb
     popcounts a generated S[h, d], nb the bits the direction matrix uses, once
     for each 64-row block."""
     per_row = 1 if nb <= 7 else 2
-    return per_row * b * h * d + h * d * nb * -(-b // 64)
+    return per_row * b * h * d, h * d * nb * -(-b // 64)
+
+
+def encode_splits(b: int, h: int, d: int) -> int:
+    """The H splits of an encode launch (``encode_splits`` in encode_bundle.cu):
+    doubled while the grid of 128-column, 64-row blocks stays within 4 * 132
+    blocks, up to 16, each split holding at least 8 features."""
+    tiles = -(-d // 128) * -(-b // 64)
+    splits = 1
+    while splits < 16 and tiles * splits * 2 <= 4 * 132 and 2 * splits * 8 <= h:
+        splits *= 2
+    return splits
+
+
+def encode_table_ops(torch, b: int, tab) -> int:
+    """The int32 operations encode_bundle's kernel issues on this table: for each
+    32-feature chunk of each H split and each 128-column block, B*hn*cols word
+    operations where the chunk's staged entries all lie in [0, 127] (the byte
+    lanes: an add, shift, mask and accumulate a word of four rows), else
+    2*B*hn*cols (a compare and an add a row)."""
+    h, d = tab.shape
+    splits = encode_splits(b, h, d)
+    per = -(-h // splits)
+    wide = ((tab < 0) | (tab > 127)).to(torch.int8)
+    wide = torch.nn.functional.pad(wide, (0, -d % 128)).view(h, -1, 128)
+    cols = torch.full((wide.shape[1],), 128, dtype=torch.int64, device=tab.device)
+    cols[-1] = d - 128 * (wide.shape[1] - 1)
+    n = 0
+    for split in range(splits):
+        hb0 = min(h, split * per)
+        hb1 = min(h, hb0 + per)
+        for h0 in range(hb0, hb1, 32):
+            hn = min(32, hb1 - h0)
+            lanes = wide[h0:h0 + hn].amax(dim=(0, 2)) == 0
+            n += b * hn * int((cols * torch.where(lanes, 1, 2)).sum())
+    return n
 
 
 def library_int_mm(torch, results, got, x, tab, levels, shape) -> None:
@@ -500,7 +572,8 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
     def _dtype(t):
         return str(t.dtype).split(".")[-1]
 
-    def check(name, got, want, shape, timed=None, direct_ops=None):
+    def check(name, got, want, shape, timed=None, direct_ops=None, popc=0, pr16_ops=None,
+              by_key=True):
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
@@ -515,34 +588,56 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
             rows: list = []
             dev_ms = device_ms(torch, kernel_fn, 20, rows)
             plain = time_ms(torch, plain_fn, 3)
-            b_ms, b_by = bound_ms(n_bytes, n_ops, *rate)
+            b_ms, b_by = bound_ms(n_bytes, n_ops, *rate, n_popc=popc)
             share = b_ms / dev_ms if isinstance(dev_ms, float) else "not measured"
             extra = {}
             if direct_ops is not None:  # the direct form's count: a compare and an add a row
                 extra["bound_ms_direct_form"] = bound_ms(n_bytes, direct_ops)[0]
+            if pr16_ops is not None:  # PR 16's count: a popcount as one int32 operation
+                extra["bound_ms_pr16"] = bound_ms(n_bytes, pr16_ops)[0]
             key = launch_key(torch, ops, name, kernel_fn)
             emit("kernel_time", kernel=name, shape=shape, key=key, ms=ms, device_ms=dev_ms,
                  plain_ms=plain, bound_ms=b_ms, bound_by=b_by, bound_share=share,
                  device_rows=rows[:4], **extra)
             r.setdefault("timed", {})[json.dumps(shape, sort_keys=True)] = dict(
                 ms=ms, device_ms=dev_ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                bound_share=share, shape=shape, key=key, **extra,
+                bound_share=share, shape=shape, key=key, device_rows=rows, **extra,
             )
-            BY_KEY.setdefault(name, {})[key] = dict(device_ms=dev_ms, bound_ms=b_ms, bound_by=b_by)
+            if by_key:
+                BY_KEY.setdefault(name, {})[key] = dict(device_ms=dev_ms, bound_ms=b_ms,
+                                                        bound_by=b_by, **extra)
 
-    # -- encode_bundle: the serving batch, then ragged cases, one with an int32
-    #    table (levels=256) ---------------------------------------------------
-    for b, h, d, levels in [(64, 784, 8192, 16), (64, 784, 2048, 16), (64, 784, 2040, 16),
-                            (37, 100, 1000, 16), (33, 113, 257, 256)]:
+    # -- encode_bundle: the serving batch at each D-shard width, train_hdc's
+    #    evaluate batch, an int8 table with entries in [-128, 127] and x outside
+    #    [0, 128] (the int32 compares in some chunks, byte lanes in others), then
+    #    ragged cases, one with an int32 table (levels=256) ---------------------
+    for b, h, d, levels, full in [(64, 784, 8192, 16, False), (64, 784, 2048, 16, False),
+                                  (64, 784, 2040, 16, False), (1024, 784, 8192, 16, False),
+                                  (64, 784, 2040, 16, True), (37, 100, 1000, 16, False),
+                                  (33, 113, 257, 256, False)]:
         x, tab = rand_x(b, h, levels), table(h, d, levels)
+        if full:
+            # negative entries in the first 300 rows only: the chunks of the later
+            # rows keep the byte lanes
+            tab = torch.randint(0, 128, (h, d), generator=gen, device=dev,
+                                dtype=torch.int32).to(torch.int8)
+            tab[:300:3, ::5] = torch.randint(-128, 0, tab[:300:3, ::5].shape, generator=gen,
+                                             device=dev, dtype=torch.int32).to(torch.int8)
+            x = torch.randint(-300, 300, (b, h), generator=gen, device=dev, dtype=torch.int32)
+            x[1::3, ::4] = torch.randint(-2**31, 2**31 - 1, x[1::3, ::4].shape, generator=gen,
+                                         device=dev, dtype=torch.int32)  # any int32 x
         k_fn = lambda: ops.encode_bundle(x, tab)  # noqa: E731
         p_fn = lambda: ref.encode_bundle(x, tab)  # noqa: E731
         got = k_fn()
         torch.cuda.synchronize()
-        shape = dict(B=b, H=h, D=d, levels=levels, table=str(tab.dtype).split(".")[-1])
+        shape = dict(B=b, H=h, D=d, levels=levels, table=str(tab.dtype).split(".")[-1],
+                     **({"entries": "negative_int8"} if full else {}))
         n_bytes = b * h * 4 + h * d * tab.element_size() + b * d * 4
+        # the bound counts what the body issues (byte lanes where a chunk allows them);
+        # the compare count, a compare and an add a row, stands beside it
         check("encode_bundle", [got], [p_fn()], shape,
-              (k_fn, p_fn, n_bytes, 2 * b * h * d) if b == 64 else None)
+              (k_fn, p_fn, n_bytes, encode_table_ops(torch, b, tab)) if b in (64, 1024) else None,
+              direct_ops=2 * b * h * d, by_key=not full)
         if b == 64 and d == 8192:
             library_int_mm(torch, results, got, x, tab, levels, shape)
 
@@ -604,11 +699,11 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         torch.cuda.synchronize()
         n_bytes = b * h * 4 + h * 32 * dirs.element_size() + b * d * 4
         nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
+        n_ops, n_popc = encode_dynamic_ops(b, h, d, nb)
         check("encode_bundle_dynamic", [got], [p_fn()],
               dict(B=b, H=h, D=d, skip=skip, levels=levels),
-              (k_fn, p_fn, n_bytes, encode_dynamic_ops(b, h, d, nb))
-              if b == 64 and skip < 2**31 else None,
-              direct_ops=2 * b * h * d)
+              (k_fn, p_fn, n_bytes, n_ops) if b == 64 and skip < 2**31 else None,
+              direct_ops=2 * b * h * d, popc=n_popc, pr16_ops=n_ops + n_popc)
 
     # -- fit_bundle_dynamic: the fit batches and the D-shard batches on the
     #    histogram path; the smoke's batch on the direct path (the same
@@ -640,18 +735,22 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
         check("fit_bundle_dynamic", [got], [p_fn()],
               dict(B=b, H=h, D=d, C=c, skip=skip, **({"path": path} if path != "histogram" else {})),
-              (k_fn, p_fn, n_bytes, b * h + c * h * d + h * d * nb) if b >= 256 else None,
-              direct_ops=2 * b * h * d + b * d)
+              (k_fn, p_fn, n_bytes, b * h + c * h * d) if b >= 256 else None,
+              direct_ops=2 * b * h * d + b * d, popc=h * d * nb,
+              pr16_ops=b * h + c * h * d + h * d * nb)
         want_path = "histogram" if dirs.dtype == torch.uint8 and c <= 48 else "direct"
         if path != want_path:
             raise AssertionError(f"fit_bundle_dynamic took the {path} path, not {want_path}")
 
-    # -- hamming_topk: predict (k=1), a 64 MiB store, crafted ties at k=C ----
-    for b, c, d, k in [(64, 10, 8192, 1), (64, 65536, 8192, 8), (16, 1000, 1000, 1000)]:
+    # -- hamming_topk: predict (k=1, the warp path), a 64 MiB store (k=8, the
+    #    select path), crafted ties at C=33 (k=5, the warp path) and at k=C=1000
+    #    (the select path, every row of a block selected) ------------------------
+    for b, c, d, k in [(64, 10, 8192, 1), (64, 65536, 8192, 8), (64, 33, 8192, 5),
+                       (16, 1000, 1000, 1000)]:
         w = unary.n_words(d)
         bits_q = torch.rand((b, d), generator=gen, device=dev) < 0.5
         bits_r = torch.rand((c, d), generator=gen, device=dev) < 0.5
-        if d == 1000:
+        if d == 1000 or c == 33:
             bits_r[c // 2] = bits_r[1]  # duplicate rows: equal distances
             bits_r[c - 1] = bits_r[0]
             bits_r[3] = bits_q[0]  # an exact match
@@ -662,9 +761,25 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         got = k_fn()
         torch.cuda.synchronize()
         want = ref.hamming_topk_oracle(q, rows, d, k) if c <= 1000 else p_fn()
+        path = "warp" if c <= 64 else "select"
+        if ops.topk_path(c) != path:
+            raise AssertionError(f"hamming_topk took the {ops.topk_path(c)} path, not {path}")
         n_bytes = b * w * 4 + c * w * 4 + 2 * b * k * 4
-        check("hamming_topk", list(got), list(want), dict(B=b, C=c, D=d, k=k),
-              (k_fn, p_fn, n_bytes, 3 * b * c * w) if d == 8192 else None)
+        # an XOR and an add (int32) and a popcount a word pair; PR 16 counted 3 int32 ops
+        shape = dict(B=b, C=c, D=d, k=k)
+        check("hamming_topk", list(got), list(want), shape,
+              (k_fn, p_fn, n_bytes, 2 * b * c * w) if d == 8192 else None,
+              popc=b * c * w, pr16_ops=3 * b * c * w)
+        if c == 65536:  # where the store search's time goes: its scan and merge launches
+            t = results["hamming_topk"]["timed"][json.dumps(shape, sort_keys=True)]
+            rows = t["device_rows"]
+            merge = [r for r in rows if "merge_kernel" in r["name"]]
+            whole = isinstance(t["device_ms"], float)
+            emit("kernel_split", kernel="hamming_topk", shape=shape, path=path,
+                 scan_ms=sum(r["ms"] for r in rows if "scan_kernel" in r["name"])
+                 if whole else "not measured",
+                 merge_ms=sum(r["ms"] for r in merge) if whole else "not measured",
+                 merge_launches=sum(r["calls"] for r in merge), rows=rows)
 
     # -- hamming_packed: a shard's score at one shard (D=8192), at four
     #    shards (2048 each), ragged (8160 over four: 2040, not whole words),
@@ -685,7 +800,8 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         timed = b == 64
         n_bytes = (b * w + c * w + b * c) * 4
         check("hamming_packed", [got], [p_fn()], shape,
-              (k_fn, p_fn, n_bytes, 3 * b * c * w) if timed else None)
+              (k_fn, p_fn, n_bytes, 2 * b * c * w) if timed else None,
+              popc=b * c * w, pr16_ops=3 * b * c * w)
         if timed:
             library_packed_int_mm(torch, results, got, bits_q, bits_r, shape)
 
@@ -1258,7 +1374,8 @@ def shape_case(torch, ops, sobol, name: str, key: str, gen):
     """Random inputs at a launched shape (levels 16 where the key does not say
     otherwise, as every path here runs), the call, and the bytes and operations
     its bound counts (as kernel_phase counts them): for a device time where
-    kernel_phase timed none.  Returns (fn, bytes, ops, rate args)."""
+    kernel_phase timed none.  Returns (fn, bytes, ops, rate args, popcounts, PR 16's
+    count of operations where it counted popcounts as int32 operations, else None)."""
     import numpy as np
 
     k, dev = parse_key(key), torch.device("cuda")
@@ -1274,11 +1391,11 @@ def shape_case(torch, ops, sobol, name: str, key: str, gen):
         tab, x = torch.from_numpy(t.astype(k["table"])).to(dev), rand_x(levels)
         if name == "encode_bundle":
             return (lambda: ops.encode_bundle(x, tab)), b * h * 4 + h * d * tab.element_size() \
-                + b * d * 4, 2 * b * h * d, ()
+                + b * d * 4, encode_table_ops(torch, b, tab), (), 0, None
         c = k["C"]
         lab = torch.randint(0, c, (b,), **i32)
         return (lambda: ops.fit_bundle(x, tab, lab, c)), b * h * 4 + h * d * tab.element_size() \
-            + b * 4 + c * d * 4, b * h + c * h * d, ()
+            + b * 4 + c * d * 4, b * h + c * h * d, (), 0, None
     if name in ("encode_bundle_dynamic", "fit_bundle_dynamic"):
         b, h, d = k["B"], k["H"], k["D"]
         levels = {"uint8": 16, "uint16": 1024, "uint32": 2**17}[k["dir"]]
@@ -1286,33 +1403,34 @@ def shape_case(torch, ops, sobol, name: str, key: str, gen):
         x, es = rand_x(levels), dirs.element_size()
         nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
         if name == "encode_bundle_dynamic":
+            n_ops, n_popc = encode_dynamic_ops(b, h, d, nb)
             return (lambda: ops.encode_bundle_dynamic(x, dirs, d)), b * h * 4 + h * 32 * es \
-                + b * d * 4, encode_dynamic_ops(b, h, d, nb), ()
+                + b * d * 4, n_ops, (), n_popc, n_ops + n_popc
         c = k["C"]
         lab = torch.randint(0, c, (b,), **i32)
         return (lambda: ops.fit_bundle_dynamic(x, dirs, lab, c, d)), b * h * 4 + h * 32 * es \
-            + b * 4 + c * d * 4, b * h + c * h * d + h * d * nb, ()
+            + b * 4 + c * d * 4, b * h + c * h * d, (), h * d * nb, b * h + c * h * d + h * d * nb
     if name in ("hamming_topk", "hamming_packed"):
         b, c, w = k["B"], k["C"], k["W"]
         q = torch.randint(-2**31, 2**31 - 1, (b, w), **i32)
         rows = torch.randint(-2**31, 2**31 - 1, (c, w), **i32)
         if name == "hamming_topk":
             return (lambda: ops.hamming_topk(q, rows, 32 * w, k["k"])), b * w * 4 + c * w * 4 \
-                + 2 * b * k["k"] * 4, 3 * b * c * w, ()
+                + 2 * b * k["k"] * 4, 2 * b * c * w, (), b * c * w, 3 * b * c * w
         return (lambda: ops.hamming_packed(q, rows, 32 * w)), (b * w + c * w + b * c) * 4, \
-            3 * b * c * w, ()
+            2 * b * c * w, (), b * c * w, 3 * b * c * w
     if name == "encode_unary_mxu":
         b, kk, d = k["B"], k["K"], k["D"]
         u = (torch.rand((b, kk), generator=gen, device=dev) < 0.06).to(torch.int8)
         o = (torch.rand((d, kk), generator=gen, device=dev) < 0.5).to(torch.int8)
         return (lambda: ops.encode_unary_mxu_operands(u, o, 784)), b * kk + d * kk + b * d * 4, \
-            2 * b * kk * d, (INT8_TC_OPS_PER_S,)
+            2 * b * kk * d, (INT8_TC_OPS_PER_S,), 0, None
     if name == "bundle_binarize":
         b, c, d, binarize = k["B"], k["C"], k["D"], k["binarize"] == "True"
         hv = torch.randint(-784, 785, (b, d), **i32)
         lab = torch.randint(0, c, (b,), **i32)
         return (lambda: ops.bundle_binarize(hv, lab, c, binarize=binarize)), b * d * 4 + b * 4 \
-            + c * d * (1 if binarize else 4), b * d, ()
+            + c * d * (1 if binarize else 4), b * d, (), 0, None
     raise KeyError(name)
 
 
@@ -1331,18 +1449,23 @@ def lost_phase(torch, ops, sobol) -> dict[str, dict]:
         for key, n in sorted(shapes.items(), key=lambda kv: -kv[1]):
             t = BY_KEY.setdefault(name, {}).get(key)
             if t is None:
-                fn, n_bytes, n_ops, rate = shape_case(torch, ops, sobol, name, key, gen)
+                fn, n_bytes, n_ops, rate, n_popc, pr16_ops = shape_case(torch, ops, sobol, name,
+                                                                        key, gen)
                 if launch_key(torch, ops, name, fn) != key:
                     raise AssertionError(f"{name}: the case for {key} launched another shape")
-                b_ms, b_by = bound_ms(n_bytes, n_ops, *rate)
-                t = BY_KEY[name][key] = dict(device_ms=device_ms(torch, fn, 20), bound_ms=b_ms,
-                                             bound_by=b_by)
-                emit("shape_time", kernel=name, key=key, **t)
+                b_ms, b_by = bound_ms(n_bytes, n_ops, *rate, n_popc=n_popc)
+                rows_t: list = []
+                t = BY_KEY[name][key] = dict(device_ms=device_ms(torch, fn, 20, rows_t),
+                                             bound_ms=b_ms, bound_by=b_by)
+                if pr16_ops is not None:
+                    t["bound_ms_pr16"] = bound_ms(n_bytes, pr16_ops)[0]
+                emit("shape_time", kernel=name, key=key, **t, device_rows=rows_t[:4])
             lost = (n * (t["device_ms"] - t["bound_ms"]) if isinstance(t["device_ms"], float)
                     else "not measured")
             rows.append(dict(key=key, launches=n, **t, lost_ms=lost))
         total = sum(r["lost_ms"] for r in rows if isinstance(r["lost_ms"], float))
-        out[name] = dict(launches_by_shape=shapes, shapes=rows, lost_ms=total)
+        out[name] = dict(launches_by_shape=shapes, shapes=rows, lost_ms=total,
+                         unmeasured=[r["key"] for r in rows if not isinstance(r["lost_ms"], float)])
     return out
 
 
@@ -1492,12 +1615,14 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
             "library_ms": t.get("library_ms"), "shape": t["shape"], "equal": True,
-            **{k: t[k] for k in ("bound_ms_direct_form", "op_ms", "operand_build_ms",
-                                 "op_first_build_ms", "u_build_ms", "o_build_ms", "op_device_ms")
+            **{k: t[k] for k in ("bound_ms_direct_form", "bound_ms_pr16", "op_ms",
+                                 "operand_build_ms", "op_first_build_ms", "u_build_ms",
+                                 "o_build_ms", "op_device_ms")
                if k in t},
             "launches_by_shape": lost[name]["launches_by_shape"], "lost_ms": lost[name]["lost_ms"],
-            "by_shape": lost[name]["shapes"],
-            "other_shapes": [v for k, v in r["timed"].items() if k != main],
+            "lost_ms_unmeasured_shapes": lost[name]["unmeasured"], "by_shape": lost[name]["shapes"],
+            "other_shapes": [{f: x for f, x in v.items() if f != "device_rows"}
+                             for k, v in r["timed"].items() if k != main],
         })
         if line[-1]["launches"] <= 0:
             raise AssertionError(f"no path launched the {name} kernel")

@@ -14,35 +14,40 @@
 // skip + d in dimension h, the XOR of the direction entries dir[h, j] selected by the
 // set bits of gray(skip + d).  Plain versions: repro_torch/kernels/ref.py.
 //
-// What bounds the encodes: compare-and-count work, 2*B*H*D integer compares and adds
-// on the CUDA cores (no tensor-core form is exact and cheap for a >= compare).  The
+// What bounds the encodes: compare-and-count work on the CUDA cores, B*H*D compares
+// (a compare and an add each, 2*B*H*D int32 operations, in the direct form; an add,
+// shift, mask and accumulate a word of four rows, B*H*D, in the byte lanes below; no
+// tensor-core form is exact and cheap for a >= compare).  The
 // bytes are small: x (B, H) int32, the threshold source ((H, D) int8 or int32 table,
 // or a (H, 32) direction matrix) and the output.
 //
-// The compare loop (count_tile, templated over the threshold source) is shared by the
-// table encode and the direct training step.  One thread per output column d (DT
-// columns a block); the source hands it S[h, d] for the HC features of a staged chunk:
+// Threshold sources hand a thread S[h, d] for its column d and the HC features of a
+// staged chunk:
 //   - Table: the block stages an (HC, DT) tile of the table in shared memory, in its
-//     stored width, with 16-byte coalesced loads issued before the x staging (element
-//     loads where rows are not 16-byte aligned: ragged D);
+//     stored width, with the widest coalesced loads the row pitch and base allow (16
+//     bytes; int8 rows also 8 or 4: at D = 2040 they take 8), issued before the x
+//     staging; element loads where none divides (ragged int8 D, int32 rows not 16-byte
+//     aligned: 4-byte loads, coalesced);
 //   - Generated: each thread derives gray(skip + d) once and builds S[h, d] for each h
 //     from bit planes: bit m of S[h, d] is the parity of (P[h][m] & gray), where P[h][m]
 //     packs bit m of the 32 direction entries of row h.  A warp stages a row with one
 //     ballot per plane, up to the highest bit set in the HC-row chunk, so a (h, d) costs
 //     one popcount per plane the entries use.
-// The block's x rows are staged in shared memory per HC-feature chunk, stored
-// transposed so a thread reads four rows with one 16-byte load; the row counters live
-// in registers.  The direct training step folds hv into a (C, DT) partial in shared
-// memory, then adds it to sums with int32 atomicAdd (exact in any order).
 //
-// The table-free encode (encode_dynamic_kernel) has a kernel of its own.  A block covers
-// 64 rows, so each S[h, d] is generated once for all of them, and counts four rows in
-// the bytes of one word (one add, shift and mask for four compares where thresholds
-// have at most 7 bits).  It splits H over the blocks of a thread-block cluster, so B =
-// 64 at D = 2048 still gives 256 blocks (512 at D = 8192).  Each split leaves its (64,
-// DT) counts in shared memory; after a cluster barrier each block sums its share of the
-// rows over the cluster's shared memory (distributed shared memory: no atomics, no
-// memset, no second launch) and writes 2 * count - H once.
+// Both encodes (uhd_encode_bundle, uhd_encode_bundle_dynamic) run one kernel,
+// encode_cluster_kernel, templated over the source.  A block covers 64 rows, so each
+// S[h, d] is staged or generated once for all of them, and counts four rows in the
+// bytes of one word (one add, shift and mask for four compares where the chunk's
+// thresholds lie in [0, 127]).  It splits H over the blocks of a thread-block cluster,
+// so B = 64 at D = 2048 still gives 256 blocks (512 at D = 8192).  Each split leaves
+// its (64, DT) counts in shared memory; after a cluster barrier each block sums its
+// share of the rows over the cluster's shared memory (distributed shared memory: no
+// atomics, no memset, no second launch) and writes 2 * count - H once.
+//
+// The direct training step (fit_kernel over count_tile, one thread per output column,
+// 32-row sub-tiles with register counters) takes the same sources.  It folds hv into
+// a (C, DT) partial in shared memory, then adds it to sums with int32 atomicAdd
+// (exact in any order).
 //
 // The training step over an int8 table or a uint8 direction matrix, with C <= 48
 // classes (every configuration the launchers run), takes the class-histogram form,
@@ -89,62 +94,113 @@ constexpr int FIT_SUB = 4;  // row sub-tiles per fused-step block
 constexpr int XS_PITCH = BB + 4;           // keeps rows 16-byte aligned
 constexpr int ACC_SMEM_BYTES = 32 * 1024;  // (C, DT) partial in shared memory
 constexpr int FILL_BLOCKS = 4 * 132;      // blocks a split grid aims at (4 an SM)
+constexpr int LANE_BITS = 7;   // thresholds of at most 7 bits ([0, 127]) take the byte lanes
 
 // ---------------------------------------------------------------------------
 // Threshold sources.  Per HC-feature chunk [h0, h0 + hn), count_tile calls
 // load (before the barrier that frees the previous chunk's shared memory),
 // store (after it), ready (after the barrier that publishes the chunk), then
-// at(h) for each h < hn: S[h0 + h, this thread's column] as an int.
+// at(h) for each h < hn: S[h0 + h, this thread's column] as an int.  The encode
+// ANDs lanes_ok() (every threshold of the chunk in [0, 127]) into that barrier.
 // ---------------------------------------------------------------------------
 
-// S read from a row-major (H, D) table of T (int8_t or int32_t).
+// S read from a row-major (H, D) table of T (int8_t or int32_t).  A chunk's (HC, DT)
+// tile is staged in shared memory in its stored width, with the widest loads the rows
+// allow (Args::width, issued before the x staging): 16 bytes, else for int8 rows 8 or
+// 4, else one element a load (ragged int8 D; an int32 element load is already a
+// coalesced 4-byte load, and the int32 training step's registers rose with more forms).  lanes_ok() says whether
+// every entry this thread staged lies in [0, 127] (the encode's byte lanes); the
+// training step never asks, so its code computes none of it.
 template <class T>
 struct Table {
   struct Args {
     const T* tab;
-    int vec;  // rows start on 16-byte boundaries (D * sizeof(T) % 16 == 0, aligned base)
+    int width;  // bytes a load: 16, or for int8 8 or 4 (dividing D * sizeof(T) and the base), else 0
   };
   struct Shared {
     alignas(16) T ts[HC][DT];
   };
-  static constexpr int PER_ROW = DT * static_cast<int>(sizeof(T)) / 16;  // int4 a tile row
-  static constexpr int NV = HC * PER_ROW / DT;                             // int4 a thread
-  static constexpr int ELEMS = 16 / static_cast<int>(sizeof(T));         // T in an int4
-  static_assert(HC * PER_ROW % DT == 0, "a chunk's int4 loads split evenly over the block");
+  static constexpr int SZ = static_cast<int>(sizeof(T));
+  static constexpr int WORDS = HC * DT * SZ / 4 / DT;  // 32-bit words of the tile a thread stages
+  static_assert(HC * DT * SZ % (16 * DT) == 0, "a chunk's loads split evenly over the block");
 
   const Args a;
   Shared& sh;
   const int D, col0;
-  int4 v[NV];
+  uint32_t v[WORDS];
+  bool small = true;  // element loads: every entry this thread staged lies in [0, 127]
 
   __device__ Table(const Args& args, Shared& s, int d, int c0) : a(args), sh(s), D(d), col0(c0) {}
 
-  __device__ __forceinline__ void load(int h0, int hn) {
-    if (!a.vec) return;
+  // pieces of W bytes: piece q of the tile is row q / PPR, bytes (q % PPR) * W of it;
+  // with W dividing the row pitch, a piece that starts inside a row ends inside it
+  template <int W>
+  __device__ __forceinline__ void load_w(int h0, int hn) {
+    constexpr int PPR = DT * SZ / W, PER = WORDS * 4 / W, E = W / SZ;
 #pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int q = threadIdx.x + i * DT, r = q / PER_ROW, e = col0 + (q % PER_ROW) * ELEMS;
-      // with aligned rows D is a multiple of ELEMS, so an int4 starting inside the
-      // row ends inside it
-      v[i] = (r < hn && e < D)
-                 ? __ldg(reinterpret_cast<const int4*>(a.tab + static_cast<long long>(h0 + r) * D + e))
-                 : make_int4(0, 0, 0, 0);
+    for (int i = 0; i < PER; ++i) {
+      const int q = threadIdx.x + i * DT, r = q / PPR, e = col0 + (q % PPR) * E;
+      const bool in = r < hn && e < D;
+      const char* src = reinterpret_cast<const char*>(a.tab + static_cast<long long>(h0 + r) * D + e);
+      if constexpr (W == 16) {
+        const int4 t = in ? __ldg(reinterpret_cast<const int4*>(src)) : make_int4(0, 0, 0, 0);
+        v[4 * i] = t.x, v[4 * i + 1] = t.y, v[4 * i + 2] = t.z, v[4 * i + 3] = t.w;
+      } else if constexpr (W == 8) {
+        const uint2 t = in ? __ldg(reinterpret_cast<const uint2*>(src)) : make_uint2(0, 0);
+        v[2 * i] = t.x, v[2 * i + 1] = t.y;
+      } else {
+        v[i] = in ? __ldg(reinterpret_cast<const uint32_t*>(src)) : 0u;
+      }
+    }
+  }
+
+  template <int W>
+  __device__ __forceinline__ void store_w() {
+    constexpr int PPR = DT * SZ / W, PER = WORDS * 4 / W;
+    char* base = reinterpret_cast<char*>(&sh.ts[0][0]);
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int q = threadIdx.x + i * DT;
+      char* dst = base + (q / PPR) * (DT * SZ) + (q % PPR) * W;
+      if constexpr (W == 16)
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      else if constexpr (W == 8)
+        *reinterpret_cast<uint2*>(dst) = make_uint2(v[2 * i], v[2 * i + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(dst) = v[i];
+    }
+  }
+
+  __device__ __forceinline__ void load(int h0, int hn) {
+    if (a.width == 16) return load_w<16>(h0, hn);  // uniform over the grid
+    if constexpr (SZ == 1) {
+      if (a.width == 8) return load_w<8>(h0, hn);
+      if (a.width == 4) return load_w<4>(h0, hn);
     }
   }
 
   __device__ __forceinline__ void store(int h0, int hn) {
-    if (a.vec) {
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int q = threadIdx.x + i * DT;
-        reinterpret_cast<int4*>(&sh.ts[q / PER_ROW][0])[q % PER_ROW] = v[i];
-      }
-      return;
+    if (a.width == 16) return store_w<16>();
+    if constexpr (SZ == 1) {
+      if (a.width == 8) return store_w<8>();
+      if (a.width == 4) return store_w<4>();
     }
     const int col = col0 + threadIdx.x;
-    for (int r = 0; r < HC; ++r)
-      sh.ts[r][threadIdx.x] =
-          (r < hn && col < D) ? a.tab[static_cast<long long>(h0 + r) * D + col] : T(0);
+    bool ok = true;
+    for (int r = 0; r < HC; ++r) {
+      const T s = (r < hn && col < D) ? a.tab[static_cast<long long>(h0 + r) * D + col] : T(0);
+      sh.ts[r][threadIdx.x] = s;
+      ok &= s >= 0 && s <= 127;
+    }
+    small = ok;
+  }
+
+  __device__ __forceinline__ bool lanes_ok() const {
+    if (!a.width) return small;
+    uint32_t any = 0;  // the staged words (zero where out of range)
+#pragma unroll
+    for (int i = 0; i < WORDS; ++i) any |= v[i];
+    return (any & (SZ == 1 ? 0x80808080u : 0xffffff80u)) == 0;
   }
 
   __device__ __forceinline__ void ready() {}
@@ -177,6 +233,7 @@ struct Generated {
   const uint32_t gray;
   uint32_t e[ROWS_PER_WARP];
   int nb = 0;
+  int nbw = 0;  // bits this warp's staged rows use
 
   __device__ Generated(const Args& args, Shared& s, int /*D*/, int col0)
       : a(args), sh(s), gray(gray_of(args.skip, col0 + static_cast<int>(threadIdx.x))) {}
@@ -204,7 +261,7 @@ struct Generated {
     uint32_t any = 0;
 #pragma unroll
     for (int r = 0; r < ROWS_PER_WARP; ++r) any |= e[r];
-    const int nbw = 32 - __clz(__reduce_or_sync(0xffffffffu, any));  // __clz(0) == 32
+    nbw = 32 - __clz(__reduce_or_sync(0xffffffffu, any));  // __clz(0) == 32
 #pragma unroll
     for (int r = 0; r < ROWS_PER_WARP; ++r) {
       uint32_t mine = 0;  // lane m keeps plane m
@@ -216,6 +273,9 @@ struct Generated {
     }
     if (lane == 0) sh.nbits[warp] = nbw;
   }
+
+  // thresholds of at most LANE_BITS bits: every S[h, d] of the chunk lies in [0, 127]
+  __device__ __forceinline__ bool lanes_ok() const { return nbw <= LANE_BITS; }
 
   __device__ __forceinline__ void ready() {
     nb = 0;
@@ -269,23 +329,6 @@ __device__ __forceinline__ void count_tile(const int* __restrict__ x, Src& src, 
 }
 
 template <class Src>
-__global__ void __launch_bounds__(DT) encode_kernel(const int* __restrict__ x,
-                                                    typename Src::Args args,
-                                                    int* __restrict__ out, int B, int H, int D) {
-  __shared__ __align__(16) int xs[HC][XS_PITCH];
-  __shared__ typename Src::Shared sh;
-  const int col0 = blockIdx.x * DT, col = col0 + threadIdx.x;
-  const int b0 = blockIdx.y * BB;
-  Src src(args, sh, D, col0);
-  int cnt[BB];
-  count_tile(x, src, B, H, b0, cnt, xs);
-  if (col >= D) return;
-#pragma unroll
-  for (int b = 0; b < BB; ++b)
-    if (b0 + b < B) out[static_cast<long long>(b0 + b) * D + col] = 2 * cnt[b] - H;
-}
-
-template <class Src>
 __global__ void __launch_bounds__(DT) fit_kernel(const int* __restrict__ x,
                                                  typename Src::Args args,
                                                  const int* __restrict__ labels,
@@ -322,14 +365,6 @@ __global__ void __launch_bounds__(DT) fit_kernel(const int* __restrict__ x,
 }
 
 template <class Src>
-void launch_encode(const int* x, const typename Src::Args& args, int* out, int B, int H, int D,
-                   void* stream) {
-  if (B <= 0 || D <= 0) return;
-  const dim3 grid((D + DT - 1) / DT, (B + BB - 1) / BB);
-  encode_kernel<Src><<<grid, DT, 0, static_cast<cudaStream_t>(stream)>>>(x, args, out, B, H, D);
-}
-
-template <class Src>
 void launch_fit(const int* x, const typename Src::Args& args, const int* labels, int* sums,
                 int B, int H, int C, int D, void* stream) {
   if (B <= 0 || D <= 0 || C <= 0) return;
@@ -341,19 +376,28 @@ void launch_fit(const int* x, const typename Src::Args& args, const int* labels,
 }
 
 // ---------------------------------------------------------------------------
-// The table-free encode: 64 rows a block, H split over a thread-block cluster.
+// The encode: 64 rows a block, H split over a thread-block cluster.
 // ---------------------------------------------------------------------------
 
 constexpr int ERB = 2 * BB;            // rows an encode block covers: 64
 constexpr int EXS_PITCH = ERB + 4;     // keeps rows 16-byte aligned
 constexpr int ENC_MAX_SPLIT = 16;      // cluster size along H (above 8: non-portable)
 constexpr int ENC_MIN_FEATURES = 8;    // features an H split holds at least
-constexpr int LANE_BITS = 7;           // thresholds of at most 7 bits take the byte lanes
 constexpr int LANE_MAX_ADDS = 255;     // features a byte lane counts before its flush
+constexpr int PART_BYTES = ERB * DT * static_cast<int>(sizeof(int));  // a split's counts
+
+// Whether the block's counts go to dynamic shared memory: only where the static arrays
+// would pass the 48 KB static limit (an int32 table's 16 KB tile).  Kept static
+// otherwise: the dynamic form measured slower on the generated source.
+template <class Src>
+__host__ __device__ constexpr bool part_dynamic() {
+  return sizeof(int) * (HC * EXS_PITCH + HC * ERB / 4) + sizeof(typename Src::Shared) +
+             PART_BYTES > 48 * 1024;
+}
 
 // H splits of a launch: doubled while the grid stays within FILL_BLOCKS blocks.  A
 // power of two, so it divides the ERB rows a block shares out in the reduction.
-int encode_dynamic_splits(int B, int H, int D) {
+int encode_splits(int B, int H, int D) {
   const long long tiles = static_cast<long long>((D + DT - 1) / DT) * ((B + ERB - 1) / ERB);
   int splits = 1;
   while (splits < ENC_MAX_SPLIT && tiles * splits * 2 <= FILL_BLOCKS &&
@@ -372,28 +416,40 @@ __device__ __forceinline__ void flush_lanes(uint32_t (&acc)[ERB / 4], int (*part
   }
 }
 
-// The compare loop counts four rows in the bytes of one word.  Where the chunk's
-// thresholds have at most LANE_BITS bits (levels <= 128, every configuration the
-// launchers run), x is staged as the byte clamp(x, -1, 127) + 1, which compares with any
-// s < 128 as x does, and one add of (127 - s) in each byte sets bit 7 exactly where
-// x >= s: four compares in an add, a shift and a mask.  Wider thresholds compare the
-// int32 x row by row into the same bytes.  The bytes are flushed to int32 counts in
-// shared memory before they could overflow.
-__global__ void __launch_bounds__(DT) encode_dynamic_kernel(const int* __restrict__ x,
-                                                            Generated::Args args,
+// One body for both encodes, templated over the threshold source (Table<T> for
+// uhd_encode_bundle, Generated for uhd_encode_bundle_dynamic).  The compare loop
+// counts four rows in the bytes of one word.  Where every threshold of the chunk lies
+// in [0, 127] (generated: at most LANE_BITS bits; table: checked on the staged tile,
+// both decided for the whole block by the barrier's AND), x is staged as the byte
+// clamp(x, -1, 127) + 1, which compares with any such s as x does, and one add of
+// (127 - s) in each byte sets bit 7 exactly where x >= s: four compares in an add, a
+// shift and a mask.  Other thresholds (negative or above 127) compare the int32 x row
+// by row into the same bytes.  The bytes are flushed to int32 counts in shared memory
+// before they could overflow.  The counts, (ERB, DT) int32, are static shared memory,
+// or dynamic (PART_BYTES) where part_dynamic says so.
+template <class Src>
+__global__ void __launch_bounds__(DT) encode_cluster_kernel(const int* __restrict__ x,
+                                                            typename Src::Args args,
                                                             int* __restrict__ out, int B, int H,
                                                             int D) {
   __shared__ __align__(16) int xs[HC][EXS_PITCH];       // x as int32
   __shared__ __align__(16) uint32_t xb[HC][ERB / 4];    // clamp(x, -1, 127) + 1, a byte a row
-  __shared__ Generated::Shared sh;
-  __shared__ int part[ERB][DT];  // this split's counts, read by the whole cluster
+  __shared__ typename Src::Shared sh;
+  int (*part)[DT];  // this split's counts, read by the whole cluster
+  if constexpr (part_dynamic<Src>()) {
+    extern __shared__ __align__(16) int part_smem[];
+    part = reinterpret_cast<int (*)[DT]>(part_smem);
+  } else {
+    __shared__ __align__(16) int part_static[ERB][DT];
+    part = part_static;
+  }
   const int tid = threadIdx.x;
   const int col0 = blockIdx.x * DT, col = col0 + tid;
   const int b0 = blockIdx.z * ERB;
   const int splits = gridDim.y;  // the cluster spans gridDim.y
   const int per = (H + splits - 1) / splits;
   const int hb0 = min(H, static_cast<int>(blockIdx.y) * per), hb1 = min(H, hb0 + per);
-  Generated src(args, sh, D, col0);
+  Src src(args, sh, D, col0);
 #pragma unroll
   for (int b = 0; b < ERB; ++b) part[b][tid] = 0;  // each thread owns its column
   uint32_t acc[ERB / 4];
@@ -411,14 +467,14 @@ __global__ void __launch_bounds__(DT) encode_dynamic_kernel(const int* __restric
       reinterpret_cast<uint8_t*>(xb[h])[b] = static_cast<uint8_t>(min(max(v, -1), 127) + 1);
     }
     src.store(h0, hn);
-    __syncthreads();
+    const bool lanes = __syncthreads_and(src.lanes_ok());  // uniform over the block
     src.ready();
     if (pending + hn > LANE_MAX_ADDS) {
       flush_lanes(acc, part);
       pending = 0;
     }
     pending += hn;
-    if (src.nb <= LANE_BITS) {  // uniform over the block
+    if (lanes) {
       for (int h = 0; h < hn; ++h) {
         const uint32_t k = static_cast<uint32_t>(127 - src.at(h)) * 0x01010101u;
         const uint4* xr = reinterpret_cast<const uint4*>(xb[h]);
@@ -467,28 +523,33 @@ __global__ void __launch_bounds__(DT) encode_dynamic_kernel(const int* __restric
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
 
-int launch_encode_dynamic(const int* x, const Generated::Args& args, int* out, int B, int H,
-                          int D, cudaStream_t s) {
+template <class Src>
+int launch_encode(const int* x, const typename Src::Args& args, int* out, int B, int H, int D,
+                  cudaStream_t s) {
   if (B <= 0 || D <= 0) return static_cast<int>(cudaGetLastError());
-  const int splits = encode_dynamic_splits(B, H, D);
-  if (splits > 8) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        encode_dynamic_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-  }
+  const int splits = encode_splits(B, H, D);
+  const int dyn = part_dynamic<Src>() ? PART_BYTES : 0;
+  cudaError_t attr = cudaSuccess;
+  if (dyn)
+    attr = cudaFuncSetAttribute(encode_cluster_kernel<Src>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+  if (attr == cudaSuccess && splits > 8)
+    attr = cudaFuncSetAttribute(encode_cluster_kernel<Src>,
+                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((D + DT - 1) / DT, splits, (B + ERB - 1) / ERB);
   cfg.blockDim = dim3(DT);
-  cfg.dynamicSmemBytes = 0;
+  cfg.dynamicSmemBytes = dyn;
   cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = splits;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
+  cudaLaunchAttribute la[1];
+  la[0].id = cudaLaunchAttributeClusterDimension;
+  la[0].val.clusterDim.x = 1;
+  la[0].val.clusterDim.y = splits;
+  la[0].val.clusterDim.z = 1;
+  cfg.attrs = la;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, encode_dynamic_kernel, x, args, out, B, H, D);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, encode_cluster_kernel<Src>, x, args, out, B, H, D);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
@@ -758,9 +819,14 @@ int launch_hist_form(const int* x, const typename Src::Args& a, const int* label
   return launch_gather<Src, HIST_MAX_CP>(a, G, ncls, span, sums, H, C, CP, D, s);
 }
 
-int table_vec(const void* tab, int tab_bytes, int D) {
-  return (static_cast<long long>(D) * tab_bytes) % 16 == 0 &&
-         reinterpret_cast<uintptr_t>(tab) % 16 == 0;
+// The widest load Table<T> takes (16 bytes; for int8 also 8 or 4) that divides both a
+// table row's pitch and the table's base address, or 0 (one element a load).
+int table_width(const void* tab, int tab_bytes, int D) {
+  const long long pitch = static_cast<long long>(D) * tab_bytes;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(tab);
+  for (int w = 16; w >= (tab_bytes == 1 ? 4 : 16); w /= 2)
+    if (pitch % w == 0 && base % w == 0) return w;
+  return 0;
 }
 
 }  // namespace
@@ -771,27 +837,27 @@ extern "C" {
 // 4: int32); out (B, D) int32.  Returns cudaGetLastError().
 int uhd_encode_bundle(const int* x, const void* tab, int tab_bytes, int* out, int B, int H, int D,
                       void* stream) {
-  const int vec = table_vec(tab, tab_bytes, D);
+  const int width = table_width(tab, tab_bytes, D);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tab_bytes == 1)
-    launch_encode<Table<int8_t>>(x, {static_cast<const int8_t*>(tab), vec}, out, B, H, D, stream);
-  else if (tab_bytes == 4)
-    launch_encode<Table<int32_t>>(x, {static_cast<const int32_t*>(tab), vec}, out, B, H, D, stream);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return launch_encode<Table<int8_t>>(x, {static_cast<const int8_t*>(tab), width}, out, B, H, D, s);
+  if (tab_bytes == 4)
+    return launch_encode<Table<int32_t>>(x, {static_cast<const int32_t*>(tab), width}, out, B, H, D,
+                                         s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // As above, plus labels (B,) int32; sums (C, D) int32, zeroed by the caller.  The direct
 // form: 2*B*H*D compares.
 int uhd_fit_bundle(const int* x, const void* tab, int tab_bytes, const int* labels, int* sums,
                    int B, int H, int C, int D, void* stream) {
-  const int vec = table_vec(tab, tab_bytes, D);
+  const int width = table_width(tab, tab_bytes, D);
   if (tab_bytes == 1)
-    launch_fit<Table<int8_t>>(x, {static_cast<const int8_t*>(tab), vec}, labels, sums, B, H, C, D,
-                              stream);
+    launch_fit<Table<int8_t>>(x, {static_cast<const int8_t*>(tab), width}, labels, sums, B, H, C,
+                              D, stream);
   else if (tab_bytes == 4)
-    launch_fit<Table<int32_t>>(x, {static_cast<const int32_t*>(tab), vec}, labels, sums, B, H, C,
-                               D, stream);
+    launch_fit<Table<int32_t>>(x, {static_cast<const int32_t*>(tab), width}, labels, sums, B, H,
+                               C, D, stream);
   else
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
@@ -812,8 +878,8 @@ int uhd_fit_bundle_hist(const int* x, const void* tab, const int* labels, int* s
 // Returns cudaGetLastError().
 int uhd_encode_bundle_dynamic(const int* x, const void* dir, int dir_bytes, int* out,
                               int B, int H, int D, long long skip, void* stream) {
-  return launch_encode_dynamic(x, {dir, dir_bytes, skip}, out, B, H, D,
-                               static_cast<cudaStream_t>(stream));
+  return launch_encode<Generated>(x, {dir, dir_bytes, skip}, out, B, H, D,
+                                  static_cast<cudaStream_t>(stream));
 }
 
 // As above, plus labels (B,) int32; sums (C, D) int32, zeroed by the caller.

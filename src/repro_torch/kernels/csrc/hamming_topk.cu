@@ -5,27 +5,32 @@
 // popcount(q ^ row), ascending by (distance, row index), the lowest index winning ties.
 // Plain versions: repro_torch/kernels/ref.py (hamming_topk, hamming_topk_oracle).
 //
-// What bounds it: XOR + popcount + add over B*C*W words on the CUDA cores (popcount
-// issues at a quarter of the int32 rate); the row store, C*W*4 bytes, is read once per
-// query tile.
+// What bounds it: XOR + popcount + add over B*C*W words on the CUDA cores; the
+// popcount pipe (16 results a clock an SM, a quarter of the int32 rate) is the
+// narrowest.  The row store, C*W*4 bytes, is read once per query tile.
 //
-// What the design does about it:
-//   * the TPU kernel scans C in order inside one grid row per query tile.  Serving
-//     batches are small (B = 64), so here C is split across blocks: block (r, t) scores
-//     rows [r*RB, (r+1)*RB) against QB queries, one warp per row (lanes stride the
-//     words, coalesced; queries come through the read-only cache), and reduces the lane
-//     sums with shuffles;
-//   * each candidate is a 64-bit key (distance << 32 | index).  Keys are unique and
-//     their unsigned order is exactly the pinned (distance, index) order, so a block
-//     bitonic-sorts its RB keys in shared memory and keeps the first min(k, rows) of
-//     them: one sorted run per block;
-//   * the runs are then merged in pairs, pass after pass, keeping the first k of each
-//     merged run.  Each thread places one key at (its rank in its own run) + (the
-//     number of keys below it in the other run, by binary search): the merge is exact
-//     and needs no synchronisation.  The last pass writes indices and distances.
-//     Every k from 1 to C works; a predict store (C <= RB) needs one launch.
-//   * rows past C never become keys; pad bits are zero in both operands and cancel
-//     in the XOR, so D % 32 != 0 needs nothing.
+// What the design does about it.  Each candidate is a 64-bit key (distance << 32 |
+// index).  Keys are unique and their unsigned order is exactly the pinned (distance,
+// index) order.  The wrapper picks one of two paths from C alone (ops.topk_path):
+//   * warp (C <= WARP_MAX_ROWS; the predict path's class store): one warp a query, the
+//     grid over queries.  Lanes stride the W words of four rows at a time (coalesced)
+//     and sum each row with one warp reduction; lane r % 32 keeps row r's key.  k
+//     rounds of a warp-wide minimum (two 32-bit reductions: the distance, then the
+//     lowest index at it) emit the keys in order.  No shared memory, no sort, no
+//     scratch, one launch;
+//   * select (C > WARP_MAX_ROWS; the store search): block (r, t) scores rows
+//     [r*RB, (r+1)*RB) against SQB queries staged in shared memory in chunks of WC
+//     words (each row word loaded feeds SQB queries), one warp per row, lane t keeping
+//     query t's distance.  Then one warp per query selects the first min(k, rows) keys
+//     of the block by as many rounds of the warp-wide minimum: one sorted run per
+//     block, without a sort.
+//   The select path's runs are then merged in pairs, pass after pass, keeping the first
+//   k of each merged run.  Each thread places one key at (its rank in its own run) +
+//   (the number of keys below it in the other run, by binary search): the merge is
+//   exact and needs no synchronisation.  The last pass writes indices and distances.
+//   Every k from 1 to C works on both paths; a store of C <= RB rows needs one launch.
+//   Rows past C never become keys; pad bits are zero in both operands and cancel in
+//   the XOR, so D % 32 != 0 needs nothing.
 
 #include <climits>
 #include <cstdint>
@@ -35,29 +40,25 @@ namespace {
 
 typedef unsigned long long u64;
 
-constexpr int TPB = 256;          // threads per block
-constexpr int RB = TPB;           // rows per scan block (one key per thread in the sort)
-constexpr int QB = 8;             // queries per scan block
+constexpr int TPB = 256;          // threads per block of the select scan and the merge
+constexpr int RB = TPB;           // rows per select scan block (eight keys a lane)
+constexpr int SQB = 16;           // queries per select scan block (<= 32: lane t keeps query t)
+constexpr int WC = 256;           // query words a select block stages per chunk
 constexpr int QCHUNK = 8192;      // queries per host-side chunk (bounds grid.y and scratch)
+constexpr int WARP_MAX_ROWS = 64; // rows the warp path takes: two keys a lane
+constexpr int WARP_QUERIES = 4;   // queries (warps) a warp-path block holds
 constexpr u64 SENTINEL = (static_cast<u64>(INT_MAX) << 32) | static_cast<u64>(INT_MAX);
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ void bitonic_sort(u64* a) {
-  const int i = threadIdx.x;
-  for (int size = 2; size <= RB; size <<= 1) {
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      __syncthreads();
-      const int j = i ^ stride;
-      if (j > i) {
-        const bool up = (i & size) == 0;
-        const u64 ai = a[i], aj = a[j];
-        if ((ai > aj) == up) {
-          a[i] = aj;
-          a[j] = ai;
-        }
-      }
-    }
-  }
-  __syncthreads();
+enum Path { PATH_WARP = 0, PATH_SELECT = 1 };
+
+// The smallest of the warp's keys (each lane offers m), by two 32-bit reductions:
+// the least distance, then the least index among the keys at that distance.
+__device__ __forceinline__ u64 warp_min_key(u64 m) {
+  const unsigned d = static_cast<unsigned>(m >> 32);
+  const unsigned dmin = __reduce_min_sync(FULL, d);
+  const unsigned imin = __reduce_min_sync(FULL, d == dmin ? static_cast<unsigned>(m) : 0xffffffffu);
+  return (static_cast<u64>(dmin) << 32) | imin;
 }
 
 __device__ __forceinline__ void put(u64 key, long long slot, u64* run_out, int* idx, int* dist) {
@@ -76,45 +77,114 @@ __device__ __forceinline__ int run_len(long long r, long long span, int C, int k
   return static_cast<int>(min(static_cast<long long>(k), hi - lo));
 }
 
-__global__ void __launch_bounds__(TPB) scan_kernel(
-    const uint32_t* __restrict__ q, const uint32_t* __restrict__ rows, int B, int C, int W,
-    int k, u64* __restrict__ runs, int stride, int* __restrict__ idx, int* __restrict__ dist) {
-  __shared__ u64 keys[QB][RB];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = blockIdx.x * RB;
-  const int q0 = blockIdx.y * QB;
-  const int nq = min(QB, B - q0);
-  for (int r = warp; r < RB; r += TPB / 32) {
-    const int row = r0 + r;
-    unsigned acc[QB];
+// Slot i of query b's output: its block's run in the scratch, or (one block) the result.
+__device__ __forceinline__ long long run_slot(int b, int i, int k, const u64* runs, int stride) {
+  return runs ? (static_cast<long long>(b) * gridDim.x + blockIdx.x) * stride + i
+              : static_cast<long long>(b) * k + i;
+}
+
+// The warp path: one warp a query, C <= WARP_MAX_ROWS rows, any k in [1, C].
+__global__ void __launch_bounds__(32 * WARP_QUERIES) warp_topk_kernel(
+    const uint32_t* __restrict__ q, const uint32_t* __restrict__ rows, int B, int C, int W, int k,
+    int* __restrict__ idx, int* __restrict__ dist) {
+  const int lane = threadIdx.x % 32;
+  const int b = blockIdx.x * WARP_QUERIES + static_cast<int>(threadIdx.x) / 32;
+  if (b >= B) return;  // uniform over the warp
+  const uint32_t* qp = q + static_cast<long long>(b) * W;
+  u64 key0 = SENTINEL, key1 = SENTINEL;  // rows lane and lane + 32
+  for (int r0 = 0; r0 < C; r0 += 4) {
+    unsigned acc[4] = {0u, 0u, 0u, 0u};
+    const uint32_t* rp = rows + static_cast<long long>(r0) * W;
+#pragma unroll 4
+    for (int j = lane; j < W; j += 32) {
+      const uint32_t qv = __ldg(qp + j);
 #pragma unroll
-    for (int t = 0; t < QB; ++t) acc[t] = 0;
-    if (row < C) {
-      const uint32_t* rp = rows + static_cast<long long>(row) * W;
-      for (int j = lane; j < W; j += 32) {
-        const uint32_t v = rp[j];
+      for (int i = 0; i < 4; ++i)
+        if (r0 + i < C) acc[i] += __popc(qv ^ __ldg(rp + static_cast<long long>(i) * W + j));
+    }
 #pragma unroll
-        for (int t = 0; t < QB; ++t)
-          if (t < nq) acc[t] += __popc(v ^ __ldg(q + static_cast<long long>(q0 + t) * W + j));
+    for (int i = 0; i < 4; ++i) {
+      const int r = r0 + i;
+      if (r >= C) break;  // uniform over the warp
+      const u64 key = (static_cast<u64>(__reduce_add_sync(FULL, acc[i])) << 32) |
+                      static_cast<unsigned>(r);
+      if (lane == (r & 31)) {
+        if (r < 32) key0 = key;
+        else key1 = key;
       }
     }
-#pragma unroll
-    for (int t = 0; t < QB; ++t) {
-      unsigned s = acc[t];
-#pragma unroll
-      for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0)
-        keys[t][r] = row < C ? (static_cast<u64>(s) << 32) | static_cast<u64>(row) : SENTINEL;
+  }
+  int* ip = idx + static_cast<long long>(b) * k;
+  int* dp = dist + static_cast<long long>(b) * k;
+  for (int i = 0; i < k; ++i) {
+    const u64 best = warp_min_key(key0 < key1 ? key0 : key1);  // a row's key: k <= C
+    if (key0 == best) key0 = SENTINEL;
+    else if (key1 == best) key1 = SENTINEL;
+    if (lane == 0) {
+      ip[i] = static_cast<int>(best & 0xffffffffull);
+      dp[i] = static_cast<int>(best >> 32);
     }
   }
-  for (int t = 0; t < nq; ++t) bitonic_sort(keys[t]);
-  const int len = min(k, min(RB, C - r0));
-  for (int t = 0; t < nq; ++t)
-    for (int i = threadIdx.x; i < len; i += TPB) {
-      const long long slot = runs ? (static_cast<long long>(q0 + t) * gridDim.x + blockIdx.x) * stride + i
-                                  : static_cast<long long>(q0 + t) * k + i;
-      put(keys[t][i], slot, runs, idx, dist);
+}
+
+// The select path's scan: block (r, t) scores rows [r*RB, (r+1)*RB) against SQB
+// queries and writes the first min(k, rows) keys of each query.
+__global__ void __launch_bounds__(TPB) select_scan_kernel(
+    const uint32_t* __restrict__ q, const uint32_t* __restrict__ rows, int B, int C, int W,
+    int k, u64* __restrict__ runs, int stride, int* __restrict__ idx, int* __restrict__ dist) {
+  __shared__ uint32_t qs[SQB][WC];  // a chunk of the block's query words
+  __shared__ unsigned ds[SQB][RB];  // distances, summed over the chunks
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = blockIdx.x * RB;
+  const int q0 = blockIdx.y * SQB;
+  const int nq = min(SQB, B - q0);
+  const int n = min(RB, C - r0);  // rows of this block
+  for (int w0 = 0; w0 < W; w0 += WC) {
+    const int wn = min(WC, W - w0);
+    __syncthreads();  // the previous chunk is consumed
+    for (int i = threadIdx.x; i < SQB * WC; i += TPB) {
+      const int t = i / WC, j = i % WC;
+      qs[t][j] = (t < nq && j < wn) ? __ldg(q + static_cast<long long>(q0 + t) * W + w0 + j) : 0u;
     }
+    __syncthreads();
+    for (int r = warp; r < n; r += TPB / 32) {
+      const uint32_t* rp = rows + static_cast<long long>(r0 + r) * W + w0;
+      unsigned acc[SQB];
+#pragma unroll
+      for (int t = 0; t < SQB; ++t) acc[t] = 0u;
+      for (int j = lane; j < wn; j += 32) {
+        const uint32_t v = __ldg(rp + j);
+#pragma unroll
+        for (int t = 0; t < SQB; ++t) acc[t] += __popc(v ^ qs[t][j]);
+      }
+#pragma unroll
+      for (int t = 0; t < SQB; ++t) {
+        const unsigned sum = __reduce_add_sync(FULL, acc[t]);
+        if (lane == t) ds[t][r] = (w0 ? ds[t][r] : 0u) + sum;
+      }
+    }
+  }
+  __syncthreads();
+  const int len = min(k, n);
+  for (int t = warp; t < nq; t += TPB / 32) {  // one warp a query
+    u64 key[RB / 32];
+#pragma unroll
+    for (int i = 0; i < RB / 32; ++i) {
+      const int r = lane + 32 * i;
+      key[i] = r < n ? (static_cast<u64>(ds[t][r]) << 32) | static_cast<unsigned>(r0 + r)
+                     : SENTINEL;
+    }
+    for (int i = 0; i < len; ++i) {
+      u64 m = key[0];
+#pragma unroll
+      for (int j = 1; j < RB / 32; ++j) m = key[j] < m ? key[j] : m;
+      const u64 best = warp_min_key(m);  // a row's key: i < n
+#pragma unroll
+      for (int j = 0; j < RB / 32; ++j)
+        if (key[j] == best) key[j] = SENTINEL;
+      if (lane == 0) put(best, run_slot(q0 + t, i, k, runs, stride), runs, idx, dist);
+    }
+  }
 }
 
 // Number of keys of the sorted run a[0, n) that are below key.
@@ -177,24 +247,34 @@ long long uhd_hamming_topk_scratch(int B, int C, int k) {
   return best * (B < QCHUNK ? B : QCHUNK);
 }
 
-// q (B, W) and rows (C, W) packed words; idx, dist (B, k) int32; 1 <= k <= C.
+// q (B, W) and rows (C, W) packed words; idx, dist (B, k) int32; 1 <= k <= C; path
+// 0 (warp: C <= WARP_MAX_ROWS) or 1 (select).
 // scratch_a/b hold uhd_hamming_topk_scratch(B, C, k) 64-bit keys each (may be null
-// when that is 0).  Returns the first CUDA error, or 0.
-int uhd_hamming_topk(const int* q, const int* rows, int B, int C, int W, int k,
+// when that is 0; the warp path uses none).  Returns the first CUDA error, or 0.
+int uhd_hamming_topk(const int* q, const int* rows, int B, int C, int W, int k, int path,
                      void* scratch_a, void* scratch_b, int* idx, int* dist, void* stream) {
+  if ((path == PATH_WARP && C > WARP_MAX_ROWS) || path < PATH_WARP || path > PATH_SELECT)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uint32_t* rw = reinterpret_cast<const uint32_t*>(rows);
   const int nb = (C + RB - 1) / RB;
   for (int q0 = 0; q0 < B; q0 += QCHUNK) {
     const int qn = B - q0 < QCHUNK ? B - q0 : QCHUNK;
     const uint32_t* qp = reinterpret_cast<const uint32_t*>(q) + static_cast<long long>(q0) * W;
     int* ip = idx + static_cast<long long>(q0) * k;
     int* dp = dist + static_cast<long long>(q0) * k;
+    if (path == PATH_WARP) {
+      warp_topk_kernel<<<(qn + WARP_QUERIES - 1) / WARP_QUERIES, 32 * WARP_QUERIES, 0, s>>>(
+          qp, rw, qn, C, W, k, ip, dp);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return static_cast<int>(err);
+      continue;
+    }
     u64* in = static_cast<u64*>(scratch_a);
     u64* out = static_cast<u64*>(scratch_b);
     int stride = k < RB ? k : RB;
-    scan_kernel<<<dim3(nb, (qn + QB - 1) / QB), TPB, 0, s>>>(
-        qp, reinterpret_cast<const uint32_t*>(rows), qn, C, W, k, nb > 1 ? in : nullptr,
-        stride, ip, dp);
+    select_scan_kernel<<<dim3(nb, (qn + SQB - 1) / SQB), TPB, 0, s>>>(
+        qp, rw, qn, C, W, k, nb > 1 ? in : nullptr, stride, ip, dp);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     long long span = RB;

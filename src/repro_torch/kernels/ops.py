@@ -11,7 +11,8 @@ and ``LAUNCH_SHAPES`` the same calls by the shape they ran at (a short
 ``"B=64 H=784 D=8192 ..."`` key); ``chip_smoke.py`` zeroes both before
 driving each path and reads them after, to show that the path ran
 through the kernels and to price each shape's launches.  One call of
-``hamming_topk`` is one scan launch plus its merge passes, one call of
+``hamming_topk`` is one launch on its warp path, else one scan launch
+plus its merge passes (:func:`topk_path`), one call of
 ``hamming_packed`` one launch per 1,048,560 rows, and one call of
 ``fit_bundle`` or ``fit_bundle_dynamic`` on its histogram path a
 histogram and a gather launch; each counts as one.
@@ -37,9 +38,10 @@ LAUNCHES: dict[str, int] = {
 }
 LAUNCH_SHAPES: dict[str, dict[str, int]] = {name: {} for name in LAUNCHES}
 
-#: grid-dimension limits of the kernels (gridDim.y <= 65535 rows of blocks; kernel 7's
-#: grid runs B along x, which has room for any int32 B, and D / 64 tiles along y)
-_MAX_ENCODE_ROWS = 65535 * 32
+#: grid-dimension limits of the kernels (the encodes' grid runs 64-row tiles along z,
+#: the direct training step 128-row tiles along y, each at most 65535; kernel 7's grid
+#: runs B along x, which has room for any int32 B, and D / 64 tiles along y)
+_MAX_ENCODE_ROWS = 65535 * 64
 _MAX_MXU_COLS = 65535 * 64
 _MAX_FIT_ROWS = 65535 * 128
 #: the histogram form of fit_bundle and fit_bundle_dynamic: each feature's thresholds span
@@ -49,6 +51,11 @@ _MAX_FIT_ROWS = 65535 * 128
 HIST_MAX_CLASSES = 48
 HIST_MAX_SCRATCH_BYTES = 256 * 2**20
 _DIR_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
+#: kernel 5's paths (``topk_path``): stores of at most this many rows take the warp
+#: path (one warp a query, no merge), larger ones the selection scan; the codes are
+#: the kernel's
+TOPK_WARP_MAX_ROWS = 64
+_TOPK_PATHS = {"warp": 0, "select": 1}
 _TABLE_DTYPES = (torch.int8, torch.int32)
 
 
@@ -138,8 +145,9 @@ def _packed_args(q_words: torch.Tensor, c_words: torch.Tensor):
 
 def encode_bundle(x_q: torch.Tensor, sobol_q: torch.Tensor) -> torch.Tensor:
     """Encode+bundle over a stored threshold table, (B, H) int, (H, D)
-    int8 or int32 -> (B, D) int32; the kernel reads the table in its
-    stored width.  Semantics: ``ref.encode_bundle``."""
+    int8 or int32 -> (B, D) int32; the kernel (the encode body that
+    ``encode_bundle_dynamic`` runs too) reads the table in its stored
+    width.  Semantics: ``ref.encode_bundle``."""
     if _on_cpu(x_q, sobol_q):
         return ref.encode_bundle(x_q, sobol_q)
     x = x_q.to(torch.int32).contiguous()
@@ -294,12 +302,22 @@ def fit_bundle_dynamic(
     return sums
 
 
+def topk_path(n_rows: int) -> str:
+    """Which path of the top-k kernel runs, from the store's row count alone:
+    ``"warp"`` for at most ``TOPK_WARP_MAX_ROWS`` rows (one warp a query
+    selects k by warp-wide minima: one launch), else ``"select"`` (each scan
+    block selects its k best by warp-wide minima, then merge passes).  Both
+    take any k in [1, C] and give the same result."""
+    return "warp" if n_rows <= TOPK_WARP_MAX_ROWS else "select"
+
+
 def hamming_topk(
     q_words: torch.Tensor, c_words: torch.Tensor, d: int, k: int
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Packed top-k retrieval, (B, W), (C, W) int32 words -> ((B, k) int32
     indices, (B, k) int32 Hamming distances), each row ascending by
-    (distance, index), lowest index on ties; any k in [1, C].
+    (distance, index), lowest index on ties; any k in [1, C].  On a card
+    it runs the path :func:`topk_path` picks.
     ``d`` is not needed for distances (kept for parity with the JAX op).
     Semantics: ``ref.hamming_topk_oracle``."""
     c = c_words.shape[0]
@@ -315,15 +333,16 @@ def hamming_topk(
     if b == 0:
         return idx, dist
     lib = _build.library()
+    path = topk_path(c)
     n = lib.uhd_hamming_topk_scratch(b, c, k)
     scratch = [torch.empty(n, dtype=torch.int64, device=dev) if n else None for _ in range(2)]
     with torch.cuda.device(dev):
         err = lib.uhd_hamming_topk(
-            _ptr(q), _ptr(rows), b, c, w, k, _ptr(scratch[0]), _ptr(scratch[1]),
-            _ptr(idx), _ptr(dist), _stream(dev),
+            _ptr(q), _ptr(rows), b, c, w, k, _TOPK_PATHS[path], _ptr(scratch[0]),
+            _ptr(scratch[1]), _ptr(idx), _ptr(dist), _stream(dev),
         )
     _check(err, "hamming_topk")
-    _launched("hamming_topk", B=b, C=c, W=w, k=k)
+    _launched("hamming_topk", B=b, C=c, W=w, k=k, path=path)
     return idx, dist
 
 

@@ -125,17 +125,27 @@ def _packed_store(seed: int, n_q: int, n_rows: int, d: int):
     rng = np.random.default_rng(seed)
     q_bits = rng.random((n_q, d)) < 0.5
     r_bits = rng.random((n_rows, d)) < 0.5
-    r_bits[n_rows // 2] = r_bits[1]  # duplicate rows: equal distances, lowest index wins
-    r_bits[n_rows - 1] = r_bits[0]
-    r_bits[2] = q_bits[0]  # an exact match for query 0
-    flip = r_bits[3].copy()  # rows 3 and 4 at the same distance from query 0
-    r_bits[4] = flip
+    if n_rows < 5:  # a tiny store: an exact match for query 0, duplicated at the end
+        r_bits[0] = r_bits[n_rows - 1] = q_bits[0]
+    else:
+        r_bits[n_rows // 2] = r_bits[1]  # duplicate rows: equal distances, lowest index wins
+        r_bits[n_rows - 1] = r_bits[0]
+        r_bits[2] = q_bits[0]  # an exact match for query 0
+        flip = r_bits[3].copy()  # rows 3 and 4 at the same distance from query 0
+        r_bits[4] = flip
     q = np.asarray(tunary.pack_bits(torch.from_numpy(q_bits)))
     r = np.asarray(tunary.pack_bits(torch.from_numpy(r_bits)))
     return q, r
 
 
-@pytest.mark.parametrize("d,n_rows,k", [(1000, 64, 1), (1000, 64, 8), (1000, 64, 64), (257, 100, 8)])
+# the small stores of the warp path (C <= 64) at k = 1 and k = C, ties and an exact match
+_SMALL_STORES = [(1000, c, k) for c in (1, 2, 10, 31, 32, 33) for k in sorted({1, c})]
+
+
+@pytest.mark.parametrize(
+    "d,n_rows,k",
+    [(1000, 64, 1), (1000, 64, 8), (1000, 64, 64), (257, 100, 8), *_SMALL_STORES],
+)
 def test_hamming_topk_matches_jax_oracle(jax_side, d, n_rows, k):
     q, r = _packed_store(d + k, 6, n_rows, d)
     want_i, want_d = jref.hamming_topk_oracle(
@@ -161,6 +171,19 @@ def test_hamming_topk_rejects_k_out_of_range():
     for k in (0, 6):
         with pytest.raises(ValueError, match="k must be in"):
             tops.hamming_topk(torch.from_numpy(q), torch.from_numpy(r), 64, k)
+
+
+@pytest.mark.parametrize(
+    "n_rows,k,want",
+    [(1, 1, "warp"), (10, 1, "warp"), (33, 33, "warp"), (64, 64, "warp"), (65, 1, "select"),
+     (65, 32, "select"), (65, 33, "select"), (65548, 8, "select"), (65548, 33, "select"),
+     (1000, 1000, "select")],
+)
+def test_topk_path_chooses_from_shape(n_rows, k, want):
+    # a store of at most 64 rows fits two keys a lane of one warp, a larger one takes the
+    # selection scan; both paths take any k in [1, C], so k does not enter the choice
+    assert 1 <= k <= n_rows
+    assert tops.topk_path(n_rows) == want
 
 
 @pytest.mark.parametrize(
@@ -223,11 +246,18 @@ def test_cuda_fit_bundle_dynamic_equals_plain(cuda, b, h, d, c, skip):
     assert torch.equal(got, want)
 
 
+# the select path's edges: a partial query tile (B < 16, B % 16 != 0), rows shorter than
+# a staged chunk of 256 words (D = 1000) and rows over two chunks (D = 10000), one scan
+# block (C = 300) and merge passes (C = 5000)
+_SELECT_CASES = [(b, c, d, k) for b in (1, 17, 65) for d in (1000, 8192, 10000)
+                 for c in (300, 5000) for k in (1, 32)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "n_q,n_rows,d,k",
     [(64, 10, 8192, 1), (64, 5000, 8192, 8), (6, 1000, 1000, 1000), (3, 777, 257, 64),
-     (9, 600, 64, 300)],
+     (9, 600, 64, 300), *_SELECT_CASES],
 )
 def test_cuda_hamming_topk_equals_plain(cuda, n_q, n_rows, d, k):
     q, r = _packed_store(n_rows + k, n_q, n_rows, d)
@@ -236,6 +266,41 @@ def test_cuda_hamming_topk_equals_plain(cuda, n_q, n_rows, d, k):
     torch.cuda.synchronize()
     want_i, want_d = tref.hamming_topk(qt, rt, d, k)
     assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 64, 65])
+@pytest.mark.parametrize("n_rows,k", [(c, k) for _, c, k in _SMALL_STORES])
+def test_cuda_hamming_topk_warp_path_equals_plain(cuda, n_q, n_rows, k):
+    # one warp a query, the class store's shapes: no sort and no merge launch
+    q, r = _packed_store(n_rows * 3 + k, n_q, n_rows, 8192)
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    tops.reset_launches()
+    got_i, got_d = tops.hamming_topk(qt, rt, 8192, k)
+    torch.cuda.synchronize()
+    assert list(tops.LAUNCH_SHAPES["hamming_topk"]) == [
+        f"B={n_q} C={n_rows} W=256 k={k} path=warp"]
+    want_i, want_d = tref.hamming_topk_oracle(qt, rt, 8192, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 8, 32, 33])
+def test_cuda_hamming_topk_store_equals_plain(cuda, k):
+    # the 64 MiB ItemMemory store on the select path, k up to and past a warp's 32 lanes
+    rng = np.random.default_rng(k)
+    c, w = 65548, 256
+    q = rng.integers(0, 2**32, (64, w), dtype=np.uint32).view(np.int32)
+    r = rng.integers(0, 2**32, (c, w), dtype=np.uint32).view(np.int32)
+    r[c // 2] = r[1]  # duplicate rows: equal distances, lowest index wins
+    r[c - 1] = r[0]
+    r[40_000] = q[0]  # an exact match for query 0
+    qt, rt = torch.from_numpy(q).to(cuda), torch.from_numpy(r).to(cuda)
+    got_i, got_d = tops.hamming_topk(qt, rt, 32 * w, k)
+    torch.cuda.synchronize()
+    want_i, want_d = tref.hamming_topk(qt, rt, 32 * w, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    assert got_i[0, 0] == 40_000 and got_d[0, 0] == 0
 
 
 @pytest.mark.cuda

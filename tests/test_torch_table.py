@@ -159,6 +159,17 @@ def test_fit_bundle_equals_jax(jax_side, b, h, d, levels, c):
     )
 
 
+@pytest.mark.parametrize("d", [2040, 2044])
+def test_encode_bundle_full_range_int8_equals_jax(jax_side, d):
+    # the D-shard widths with int8 entries in [-128, 127] and any int32 x: both
+    # packages compare x with the sign-extended entry
+    x, _, table = _full_range_case(d, 9, 49, d, 3)
+    want = np.asarray(jref.encode_bundle(jnp.asarray(x), jnp.asarray(table)))
+    xt, st = torch.from_numpy(x), torch.from_numpy(table)
+    for got in (tref.encode_bundle(xt, st), tops.encode_bundle(xt, st)):
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_table_and_generated_thresholds_agree():
     """The table of ``uhd`` holds exactly the thresholds ``uhd_dynamic``
     generates from the same seed and skip."""
@@ -492,20 +503,69 @@ def test_train_hdc_cli_on_the_cpu_matches_jax_accuracy(jax_side, tmp_path):
 @pytest.mark.parametrize(
     "b,h,d,levels",
     [(64, 784, 8192, 16), (37, 100, 1000, 16), (37, 100, 1008, 16), (33, 113, 257, 256),
-     (33, 113, 260, 256), (5, 49, 300, 2), (70, 40, 1003, 2**16), (1, 1, 1, 16)],
+     (33, 113, 260, 256), (5, 49, 300, 2), (70, 40, 1003, 2**16), (1, 1, 1, 16),
+     (64, 784, 2048, 256), (64, 1, 2048, 16), (64, 7, 2040, 16), (65, 7, 8192, 256)],
 )
 def test_cuda_encode_bundle_equals_plain(cuda, b, h, d, levels):
-    """Rows of D * itemsize % 16 == 0 bytes take the 16-byte loads (ragged
-    last block included), the others the element loads."""
+    """Rows whose pitch (D * itemsize bytes) is a multiple of 16 bytes take
+    16-byte loads (ragged last block included), int8 rows of 8 or 4 bytes loads
+    of that width, the others element loads; H of 1 and 7 runs one H split, H =
+    784 up to 16; an int32 table (levels 256 and above) takes the int32 compares
+    and dynamic shared memory."""
     x, _, table = _table_inputs(b + h, b, h, d, levels)
     xt, st = torch.from_numpy(x).to(cuda), torch.from_numpy(table).to(cuda)
     got = tops.encode_bundle(xt, st)
     torch.cuda.synchronize()
     assert torch.equal(got, tref.encode_bundle(xt, st))
-    # a contiguous table whose base is off a 16-byte boundary takes the element loads
+    # a contiguous table whose base is one element off a 16-byte boundary takes
+    # element loads
     off = torch.empty(h * d + 1, dtype=st.dtype, device=cuda)[1:].view(h, d)
     off.copy_(st)
     assert torch.equal(tops.encode_bundle(xt, off), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2048, 2040, 2044, 8192])
+@pytest.mark.parametrize("b", [1, 63, 64, 65, 1024])
+def test_cuda_encode_bundle_d_shards_equal_plain(cuda, b, d):
+    # the serving and D-shard widths (2040: 8-byte loads, 2044: 4-byte loads), one and
+    # two 64-row tiles, and train_hdc's evaluate batch (B = 1024, one H split)
+    x, _, table = _table_inputs(b * 5 + d, b, 784, d, 16)
+    xt, st = torch.from_numpy(x).to(cuda), torch.from_numpy(table).to(cuda)
+    tops.reset_launches()
+    got = tops.encode_bundle(xt, st)
+    torch.cuda.synchronize()
+    assert list(tops.LAUNCH_SHAPES["encode_bundle"]) == [f"B={b} H=784 D={d} table=int8"]
+    assert torch.equal(got, tref.encode_bundle(xt, st))
+
+
+def _negative_table_case(seed: int, b: int, h: int, d: int):
+    """An int8 table with entries in [-128, 127] in its first h // 2 rows and in
+    [0, 127] after them (so some chunks take the byte lanes and some the int32
+    compares), and x outside [0, 128], the int32 extremes included."""
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, 128, (h, d)).astype(np.int8)
+    table[: h // 2] = rng.integers(-128, 128, (h // 2, d))
+    table[0, : d // 2] = -128
+    x = rng.integers(-300, 300, (b, h)).astype(np.int32)
+    x[::3, ::4] = rng.integers(-2**31, 2**31, x[::3, ::4].shape)
+    x[1::5, 1 % h] = 2**31 - 1
+    x[2::5, 2 % h] = -2**31
+    return x, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "b,h,d", [(64, 784, 2040), (65, 784, 8192), (64, 784, 2044), (9, 100, 257), (1, 7, 33)]
+)
+def test_cuda_encode_bundle_negative_entries_equal_plain(cuda, b, h, d):
+    x, table = _negative_table_case(b + h + d, b, h, d)
+    xt, st = torch.from_numpy(x).to(cuda), torch.from_numpy(table).to(cuda)
+    got = tops.encode_bundle(xt, st)
+    torch.cuda.synchronize()
+    assert torch.equal(got, tref.encode_bundle(xt, st))
+    # the same entries as int32: compared as the same integers
+    assert torch.equal(tops.encode_bundle(xt, st.to(torch.int32)), got)
 
 
 @pytest.mark.cuda
