@@ -2,7 +2,7 @@
 """A/B of the port's CUDA kernels between two checkouts, on one card, in one call.
 
     git archive <commit> src/repro_torch | tar -x -C build/parent   # a git-ignored directory
-    python3 chip_ab.py build/parent [--rounds 2]
+    python3 chip_ab.py build/parent [--rounds 2] [--only hamming_packed,bundle_binarize]
 
 Each side runs in a process of its own that imports its own ``repro_torch``
 (from ``<root>/src``) and builds its own kernels (into ``<root>/build``).  The
@@ -13,7 +13,10 @@ fixed seed, holds each result against its plain version, and times it with
 ``chip_smoke.device_ms`` (``torch.profiler``, 20 calls, a profile that missed
 launches taken again), by kernel name.  ``hamming_topk_select`` runs kernel 5
 with its selection scan forced at a shape ``ops.topk_path`` sends to the warp
-path, to price the warp path against it.  Printed:
+path, to price the warp path against it; ``hamming_packed_<path>`` runs kernel 6
+with that path forced (``ops.packed_path``; a tree without it runs its one
+kernel).  ``--only a,b`` keeps the cases whose names start with one of those
+prefixes.  Printed:
 the card's ``nvidia-smi`` name and power limit, one JSON line per side, round
 and case, then one summary line per case with each side's mean device ms and
 the ratio this / other.  Exits non-zero without a card or if any output
@@ -43,11 +46,15 @@ CASES = [
     ("hamming_topk", dict(B=64, C=10, W=256, k=1)),
     ("hamming_topk_select", dict(B=64, C=10, W=256, k=1)),
     *[("hamming_topk", dict(B=64, C=65548, W=256, k=k)) for k in (8, 33, 300, 1000)],
+    *[("hamming_packed", dict(B=64, C=c, W=w)) for c in (10, 65548) for w in (256, 64)],
+    *[("hamming_packed_tensor", dict(B=64, C=10, W=w)) for w in (256, 64)],
+    *[("bundle_binarize", dict(B=b, C=10, D=d)) for b, d in ((2048, 8192), (512, 8192), (256, 2048))],
 ]
 
 
-def worker(src: Path) -> int:
-    """Time every case with the repro_torch under `src`; one JSON line each."""
+def worker(src: Path, only: list[str]) -> int:
+    """Time every case (or those `only` names) with the repro_torch under `src`;
+    one JSON line each."""
     sys.path.insert(0, str(src))
     import torch
 
@@ -58,6 +65,7 @@ def worker(src: Path) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     topk_path = ops.topk_path
+    packed_path = getattr(ops, "packed_path", None)
 
     def table(h, d, levels, dtype):
         t = sobol.sobol_table_for_features(h, d, levels, seed=0)
@@ -66,6 +74,8 @@ def worker(src: Path) -> int:
     dirs = torch.from_numpy(sobol.quantized_direction_matrix(784, 16, seed=0)).to(dev)
     ok = True
     for name, shape in CASES:
+        if only and not any(name.startswith(p) for p in only):
+            continue
         i32 = dict(generator=gen, device=dev, dtype=torch.int32)
         if name == "encode_bundle":
             x = torch.randint(0, 17, (shape["B"], shape["H"]), **i32)
@@ -82,14 +92,28 @@ def worker(src: Path) -> int:
             lab = torch.randint(0, shape["C"], (shape["B"],), **i32)
             fn = lambda: ops.fit_bundle(x, tab, lab, 10)  # noqa: E731
             plain = lambda: [ref.fit_bundle(x, tab, lab, 10)]  # noqa: E731
+        elif name == "bundle_binarize":  # the baseline's training step: int32 sums
+            hv = torch.randint(-784, 785, (shape["B"], shape["D"]), **i32)
+            lab = torch.randint(0, shape["C"], (shape["B"],), **i32)
+            fn = lambda: ops.bundle_binarize(hv, lab, 10, binarize=False)  # noqa: E731
+            plain = lambda: [ref.bundle_binarize(  # noqa: E731
+                hv, ref.class_onehot(lab, 10), binarize=False)]
         else:
             q = torch.randint(-2**31, 2**31 - 1, (shape["B"], shape["W"]), **i32)
             r = torch.randint(-2**31, 2**31 - 1, (shape["C"], shape["W"]), **i32)
-            k = shape["k"]
-            fn = lambda: ops.hamming_topk(q, r, 32 * shape["W"], k)  # noqa: E731
-            plain = lambda: ref.hamming_topk(q, r, 32 * shape["W"], k)  # noqa: E731
-        # the wrapper reads ops.topk_path at each call
+            d = 32 * shape["W"]
+            if name.startswith("hamming_packed"):
+                fn = lambda: ops.hamming_packed(q, r, d)  # noqa: E731
+                plain = lambda: [ref.hamming_packed(q, r, d)]  # noqa: E731
+            else:
+                k = shape["k"]
+                fn = lambda: ops.hamming_topk(q, r, d, k)  # noqa: E731
+                plain = lambda: ref.hamming_topk(q, r, d, k)  # noqa: E731
+        # the wrappers read ops.topk_path and ops.packed_path at each call
         ops.topk_path = (lambda *_: "select") if name == "hamming_topk_select" else topk_path
+        if packed_path is not None:
+            forced = name[len("hamming_packed_"):] if name.startswith("hamming_packed_") else None
+            ops.packed_path = (lambda *_: forced) if forced else packed_path
         ops.reset_launches()
         got = fn()
         got = list(got) if isinstance(got, tuple) else [got]
@@ -104,8 +128,9 @@ def worker(src: Path) -> int:
 
 
 def main(argv: list[str]) -> int:
+    only = argv[argv.index("--only") + 1].split(",") if "--only" in argv else []
     if "--worker" in argv:
-        return worker(Path(argv[argv.index("--worker") + 1]))
+        return worker(Path(argv[argv.index("--worker") + 1]), only)
     import torch
 
     if not torch.cuda.is_available():
@@ -122,7 +147,8 @@ def main(argv: list[str]) -> int:
     for rnd in range(rounds):
         for side in ("other", "this", "this", "other"):
             out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--worker",
-                                  str(sides[side])], capture_output=True, text=True, cwd=ROOT)
+                                  str(sides[side]), *(["--only", ",".join(only)] if only else [])],
+                                 capture_output=True, text=True, cwd=ROOT)
             failed |= out.returncode != 0
             for line in out.stdout.splitlines():
                 r = json.loads(line)

@@ -7,8 +7,9 @@ Phases, each printed as one JSON object per line:
 
 1. device: the card's name and count, and ``nvidia-smi``'s name and power limit;
 2. build: the CUDA kernels of ``repro_torch`` built from ``src/repro_torch/kernels/csrc``
-   with nvcc for sm_90a, with the seconds taken and ptxas's register and
-   shared-memory lines;
+   with nvcc for sm_90a, with the seconds taken, ptxas's register and
+   shared-memory lines, and the tensor-core instructions in each source's SASS
+   (kernel 7 must hold ``IGMMA``, kernel 6 ``BMMA``);
 3. kernels: each kernel (both forms of the two training kernels) against its
    plain PyTorch version on the card at the main paths' shapes and at ragged
    ones, for exact equality (the datapath
@@ -18,10 +19,14 @@ Phases, each printed as one JSON object per line:
    ``encode_unary_mxu``, one ``torch._int_mm`` call computing the same result,
    and for ``bundle_binarize`` one int32 ``index_add_``, is timed beside it as
    the library yardstick (the port never calls them); each bound is the largest of
-   the bytes, the int32 operations and the popcounts over their rates, beside the
-   count PR 16 used where it differs (``bound_ms_pr16``, ``bound_ms_direct_form``);
-   the top-k store search's device time split into its scan and merge launches
-   (``kernel_split``);
+   the bytes, the int32 operations and the popcounts over their rates (for the two
+   packed-score kernels, 2*B*C*d int8 operations at the tensor cores' rate, with the
+   popcount count beside it, ``bound_ms_popc``), beside the earlier counts where they
+   differ (``bound_ms_pr16``: popcounts as int32 operations; ``bound_ms_direct_form``); ``hamming_packed`` on both
+   of its paths (``ops.packed_path``, and the tensor path forced at the warp path's
+   shapes); the top-k store search's device time split into its scan and merge
+   launches (``kernel_split``); and ``launch_floor``, the device time of a
+   one-element PyTorch fill, the least a launch costs on the card;
 4. slice: ``repro_torch.launch.serve_hdc``'s smoke at the JAX smoke's
    configuration (synth_mnist, d=8192, levels=16, 1024 training images, 256
    requests in batches of 64), once with ``uhd_dynamic`` and once with ``uhd``,
@@ -365,11 +370,15 @@ def launch_key(torch, ops, name: str, fn) -> str:
     return key
 
 
+SASS_OPS = ("GMMA", "IGMMA", "HGMMA", "IMMA", "BMMA")
+
+
 def sass_counts(_build) -> dict[str, dict[str, int]]:
     """Tensor-core instructions in the built library's SASS (``cuobjdump
     -sass``), by kernel source: warpgroup MMA (the ``*GMMA`` family,
-    ``IGMMA`` for integers) and ``IMMA`` (what ``mma.sync`` on integers
-    compiles to)."""
+    ``IGMMA`` for integers, ``HGMMA`` for halves), ``IMMA`` (what
+    ``mma.sync`` on integers compiles to) and ``BMMA`` (``mma.sync`` on
+    single bits)."""
     cuobjdump = Path(_build.find_nvcc()).parent / "cuobjdump"
     lib = _build.BUILD_ROOT / _build.source_hash() / "libuhd_kernels.so"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
@@ -381,9 +390,9 @@ def sass_counts(_build) -> dict[str, dict[str, int]]:
             name = line.split("Function :")[1].strip()
             fn = next((k for k in ("encode_unary_mxu", "encode_bundle", "hamming_topk",
                                    "hamming_packed", "bundle_binarize") if k in name), "other")
-            counts.setdefault(fn, {"GMMA": 0, "IGMMA": 0, "IMMA": 0})
+            counts.setdefault(fn, {op: 0 for op in SASS_OPS})
         elif fn is not None:
-            for op in ("GMMA", "IGMMA", "IMMA"):
+            for op in SASS_OPS:
                 counts[fn][op] += f"{op}." in line or f"{op} " in line
     return counts
 
@@ -458,6 +467,12 @@ def bound_ms(n_bytes: float, n_ops: float, ops_per_s: float = INT32_OPS_PER_S,
     rate, the operations over their rate, and the popcounts over the popcount pipe's."""
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, max(n_ops / ops_per_s, n_popc / POPC_PER_S)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def popc_bound_ms(n_bytes: float, n_ops: float, n_popc: float) -> float:
+    """The packed-score kernels' bound on the CUDA cores: an XOR and an add a
+    word pair at the int32 rate and a popcount at the popcount pipe's."""
+    return bound_ms(n_bytes, n_ops, n_popc=n_popc)[0]
 
 
 def encode_dynamic_ops(b: int, h: int, d: int, nb: int) -> tuple[int, int]:
@@ -573,7 +588,7 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         return str(t.dtype).split(".")[-1]
 
     def check(name, got, want, shape, timed=None, direct_ops=None, popc=0, pr16_ops=None,
-              by_key=True):
+              popc_form=None, by_key=True):
         equal = all(torch.equal(g, w) for g, w in zip(got, want))
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
@@ -595,6 +610,8 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
                 extra["bound_ms_direct_form"] = bound_ms(n_bytes, direct_ops)[0]
             if pr16_ops is not None:  # PR 16's count: a popcount as one int32 operation
                 extra["bound_ms_pr16"] = bound_ms(n_bytes, pr16_ops)[0]
+            if popc_form is not None:  # XOR, add and popcount on the CUDA cores
+                extra["bound_ms_popc"] = popc_bound_ms(n_bytes, *popc_form)
             key = launch_key(torch, ops, name, kernel_fn)
             emit("kernel_time", kernel=name, shape=shape, key=key, ms=ms, device_ms=dev_ms,
                  plain_ms=plain, bound_ms=b_ms, bound_by=b_by, bound_share=share,
@@ -765,11 +782,12 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         if ops.topk_path(c) != path:
             raise AssertionError(f"hamming_topk took the {ops.topk_path(c)} path, not {path}")
         n_bytes = b * w * 4 + c * w * 4 + 2 * b * k * 4
-        # an XOR and an add (int32) and a popcount a word pair; PR 16 counted 3 int32 ops
+        # the least work: the binary products on the int8 tensor cores, 2*B*C*d operations
+        # (d = 32 W); beside it the CUDA cores' count, an XOR, an add and a popcount a pair
         shape = dict(B=b, C=c, D=d, k=k)
         check("hamming_topk", list(got), list(want), shape,
-              (k_fn, p_fn, n_bytes, 2 * b * c * w) if d == 8192 else None,
-              popc=b * c * w, pr16_ops=3 * b * c * w)
+              (k_fn, p_fn, n_bytes, 2 * b * c * 32 * w, INT8_TC_OPS_PER_S) if d == 8192 else None,
+              popc_form=(2 * b * c * w, b * c * w))
         if c == 65536:  # where the store search's time goes: its scan and merge launches
             t = results["hamming_topk"]["timed"][json.dumps(shape, sort_keys=True)]
             rows = t["device_rows"]
@@ -781,29 +799,42 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
                  merge_ms=sum(r["ms"] for r in merge) if whole else "not measured",
                  merge_launches=sum(r["calls"] for r in merge), rows=rows)
 
-    # -- hamming_packed: a shard's score at one shard (D=8192), at four
-    #    shards (2048 each), ragged (8160 over four: 2040, not whole words),
-    #    and the sharded search over a 64 MiB store; then tiny ragged cases -
-    for b, c, d in [(64, 10, 8192), (64, 10, 2048), (64, 10, 2040), (64, 65536, 8192),
-                    (37, 130, 257), (3, 7, 33)]:
-        w = unary.n_words(d)
-        bits_q = torch.rand((b, d), generator=gen, device=dev) < 0.5
-        bits_r = torch.rand((c, d), generator=gen, device=dev) < 0.5
-        bits_r[c - 1] = bits_r[0]  # duplicate rows: equal scores
-        bits_r[1] = bits_q[0]  # an exact match: score d
-        q, rows = unary.pack_bits(bits_q), unary.pack_bits(bits_r)
-        k_fn = lambda: ops.hamming_packed(q, rows, d)  # noqa: E731
-        p_fn = lambda: ref.hamming_packed(q, rows, d)  # noqa: E731
-        got = k_fn()
-        torch.cuda.synchronize()
-        shape = dict(B=b, C=c, D=d)
-        timed = b == 64
-        n_bytes = (b * w + c * w + b * c) * 4
-        check("hamming_packed", [got], [p_fn()], shape,
-              (k_fn, p_fn, n_bytes, 2 * b * c * w) if timed else None,
-              popc=b * c * w, pr16_ops=3 * b * c * w)
-        if timed:
-            library_packed_int_mm(torch, results, got, bits_q, bits_r, shape)
+    # -- hamming_packed: each store size (C = 1, 10, 64: the warp path; 65, 130,
+    #    65,548: the tensor path) at a shard of each width (8192, 2048 and 2040
+    #    bits: whole words and not) and at d = 33; a duplicate row and an exact
+    #    match in each; the warp path's stores again with the tensor path forced
+    #    (the path is a function of C alone, so a short call checks both) --------
+    real_path = ops.packed_path
+    for c in (1, 10, 64, 65, 130, 65548):
+        for d in (8192, 2048, 2040, 33):
+            b = 64 if d != 33 else 37
+            w = unary.n_words(d)
+            bits_q = torch.rand((b, d), generator=gen, device=dev) < 0.5
+            bits_r = torch.rand((c, d), generator=gen, device=dev) < 0.5
+            bits_r[c - 1] = bits_r[0]  # duplicate rows: equal scores
+            bits_r[min(1, c - 1)] = bits_q[0]  # an exact match: score d
+            q, rows = unary.pack_bits(bits_q), unary.pack_bits(bits_r)
+            k_fn = lambda: ops.hamming_packed(q, rows, d)  # noqa: E731
+            p_fn = lambda: ref.hamming_packed(q, rows, d)  # noqa: E731
+            want = p_fn()
+            path = "warp" if c <= 64 else "tensor"
+            if ops.packed_path(c) != path:
+                raise AssertionError(f"hamming_packed took the {ops.packed_path(c)} path, not {path}")
+            for forced in ((None, "tensor") if path == "warp" else (None,)):
+                ops.packed_path = (lambda *_: forced) if forced else real_path
+                try:
+                    got = k_fn()
+                    torch.cuda.synchronize()
+                finally:
+                    ops.packed_path = real_path
+                shape = dict(B=b, C=c, D=d, **({"path": forced} if forced else {}))
+                timed = forced is None and b == 64 and (c == 10 or (c == 65548 and d != 2040))
+                n_bytes = (b * w + c * w + b * c) * 4
+                check("hamming_packed", [got], [want], shape,
+                      (k_fn, p_fn, n_bytes, 2 * b * c * 32 * w, INT8_TC_OPS_PER_S)
+                      if timed else None, popc_form=(2 * b * c * w, b * c * w))
+                if timed and d != 2040:
+                    library_packed_int_mm(torch, results, got, bits_q, bits_r, shape)
 
     # -- encode_unary_mxu: the uhd table encode's operands at the serving batch
     #    (also equal to encode_bundle's output), the baseline encoder's at the
@@ -873,13 +904,16 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
             if b == 2048:  # the tensor cores' heaviest load of the run
                 t["sustained_ms"] = sustained(torch, k_fn, shape, 2500)["ms"]
 
-    # -- bundle_binarize: train_hdc's batch, the smoke's, then ragged with an
-    #    out-of-range label; both modes ---------------------------------------
-    for b, c, d in [(2048, 10, 8192), (512, 10, 8192), (7, 12, 1000)]:
+    # -- bundle_binarize: train_hdc's batch, the smoke's, a D-shard's, then fewer
+    #    rows than a cluster has blocks (B = 1, 7), two C tiles (C = 257) and
+    #    ragged D (1000: element loads), each with out-of-range labels; both modes
+    for b, c, d in [(2048, 10, 8192), (512, 10, 8192), (256, 10, 2048), (1, 10, 8192),
+                    (7, 12, 1000), (300, 257, 2048), (64, 257, 1000)]:
         hv = torch.randint(-784, 785, (b, d), generator=gen, device=dev, dtype=torch.int32)
         labels = torch.randint(0, c, (b,), generator=gen, device=dev, dtype=torch.int32)
-        if b == 7:
+        if b == 7 or c == 257:
             labels[2] = c  # out of range: dropped
+            labels[::5] = -1
         for binarize in (False, True):
             k_fn = lambda: ops.bundle_binarize(hv, labels, c, binarize=binarize)  # noqa: E731
             p_fn = lambda: ref.bundle_binarize(  # noqa: E731
@@ -888,8 +922,10 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
             torch.cuda.synchronize()
             shape = dict(B=b, C=c, D=d, binarize=binarize)
             n_bytes = b * d * 4 + b * 4 + c * d * (1 if binarize else 4)
-            timed = None if b == 7 else (k_fn, p_fn, n_bytes, b * d)
+            timed = (k_fn, p_fn, n_bytes, b * d) if b >= 256 and c == 10 else None
             check("bundle_binarize", [got], [p_fn()], shape, timed)
+            if b == 2048 and parse_key(launch_key(torch, ops, "bundle_binarize", k_fn))["cluster"] < 2:
+                raise AssertionError("bundle_binarize did not split B over a cluster at B = 2048")
             if timed and not binarize:
                 library_index_add(torch, results, got, hv, labels, c, shape)
     return results
@@ -1374,8 +1410,10 @@ def shape_case(torch, ops, sobol, name: str, key: str, gen):
     """Random inputs at a launched shape (levels 16 where the key does not say
     otherwise, as every path here runs), the call, and the bytes and operations
     its bound counts (as kernel_phase counts them): for a device time where
-    kernel_phase timed none.  Returns (fn, bytes, ops, rate args, popcounts, PR 16's
-    count of operations where it counted popcounts as int32 operations, else None)."""
+    kernel_phase timed none.  Returns (fn, bytes, ops, rate args, popcounts, and the
+    bounds of other counts: ``bound_ms_pr16``, popcounts counted as int32
+    operations, and ``bound_ms_popc``, the CUDA cores' count where the bound is the
+    tensor cores')."""
     import numpy as np
 
     k, dev = parse_key(key), torch.device("cuda")
@@ -1391,11 +1429,11 @@ def shape_case(torch, ops, sobol, name: str, key: str, gen):
         tab, x = torch.from_numpy(t.astype(k["table"])).to(dev), rand_x(levels)
         if name == "encode_bundle":
             return (lambda: ops.encode_bundle(x, tab)), b * h * 4 + h * d * tab.element_size() \
-                + b * d * 4, encode_table_ops(torch, b, tab), (), 0, None
+                + b * d * 4, encode_table_ops(torch, b, tab), (), 0, {}
         c = k["C"]
         lab = torch.randint(0, c, (b,), **i32)
         return (lambda: ops.fit_bundle(x, tab, lab, c)), b * h * 4 + h * d * tab.element_size() \
-            + b * 4 + c * d * 4, b * h + c * h * d, (), 0, None
+            + b * 4 + c * d * 4, b * h + c * h * d, (), 0, {}
     if name in ("encode_bundle_dynamic", "fit_bundle_dynamic"):
         b, h, d = k["B"], k["H"], k["D"]
         levels = {"uint8": 16, "uint16": 1024, "uint32": 2**17}[k["dir"]]
@@ -1404,33 +1442,37 @@ def shape_case(torch, ops, sobol, name: str, key: str, gen):
         nb = int(np.bitwise_or.reduce(dirs.to(torch.int64).cpu().numpy().ravel())).bit_length()
         if name == "encode_bundle_dynamic":
             n_ops, n_popc = encode_dynamic_ops(b, h, d, nb)
-            return (lambda: ops.encode_bundle_dynamic(x, dirs, d)), b * h * 4 + h * 32 * es \
-                + b * d * 4, n_ops, (), n_popc, n_ops + n_popc
+            n_bytes = b * h * 4 + h * 32 * es + b * d * 4
+            return (lambda: ops.encode_bundle_dynamic(x, dirs, d)), n_bytes, n_ops, (), n_popc, \
+                {"bound_ms_pr16": bound_ms(n_bytes, n_ops + n_popc)[0]}
         c = k["C"]
         lab = torch.randint(0, c, (b,), **i32)
-        return (lambda: ops.fit_bundle_dynamic(x, dirs, lab, c, d)), b * h * 4 + h * 32 * es \
-            + b * 4 + c * d * 4, b * h + c * h * d, (), h * d * nb, b * h + c * h * d + h * d * nb
+        n_bytes = b * h * 4 + h * 32 * es + b * 4 + c * d * 4
+        return (lambda: ops.fit_bundle_dynamic(x, dirs, lab, c, d)), n_bytes, b * h + c * h * d, \
+            (), h * d * nb, {"bound_ms_pr16": bound_ms(n_bytes, b * h + c * h * d + h * d * nb)[0]}
     if name in ("hamming_topk", "hamming_packed"):
         b, c, w = k["B"], k["C"], k["W"]
         q = torch.randint(-2**31, 2**31 - 1, (b, w), **i32)
         rows = torch.randint(-2**31, 2**31 - 1, (c, w), **i32)
         if name == "hamming_topk":
-            return (lambda: ops.hamming_topk(q, rows, 32 * w, k["k"])), b * w * 4 + c * w * 4 \
-                + 2 * b * k["k"] * 4, 2 * b * c * w, (), b * c * w, 3 * b * c * w
-        return (lambda: ops.hamming_packed(q, rows, 32 * w)), (b * w + c * w + b * c) * 4, \
-            2 * b * c * w, (), b * c * w, 3 * b * c * w
+            fn, n_bytes = (lambda: ops.hamming_topk(q, rows, 32 * w, k["k"])), \
+                b * w * 4 + c * w * 4 + 2 * b * k["k"] * 4
+        else:
+            fn, n_bytes = (lambda: ops.hamming_packed(q, rows, 32 * w)), (b * w + c * w + b * c) * 4
+        return fn, n_bytes, 2 * b * c * 32 * w, (INT8_TC_OPS_PER_S,), 0, \
+            {"bound_ms_popc": popc_bound_ms(n_bytes, 2 * b * c * w, b * c * w)}
     if name == "encode_unary_mxu":
         b, kk, d = k["B"], k["K"], k["D"]
         u = (torch.rand((b, kk), generator=gen, device=dev) < 0.06).to(torch.int8)
         o = (torch.rand((d, kk), generator=gen, device=dev) < 0.5).to(torch.int8)
         return (lambda: ops.encode_unary_mxu_operands(u, o, 784)), b * kk + d * kk + b * d * 4, \
-            2 * b * kk * d, (INT8_TC_OPS_PER_S,), 0, None
+            2 * b * kk * d, (INT8_TC_OPS_PER_S,), 0, {}
     if name == "bundle_binarize":
         b, c, d, binarize = k["B"], k["C"], k["D"], k["binarize"] == "True"
         hv = torch.randint(-784, 785, (b, d), **i32)
         lab = torch.randint(0, c, (b,), **i32)
         return (lambda: ops.bundle_binarize(hv, lab, c, binarize=binarize)), b * d * 4 + b * 4 \
-            + c * d * (1 if binarize else 4), b * d, (), 0, None
+            + c * d * (1 if binarize else 4), b * d, (), 0, {}
     raise KeyError(name)
 
 
@@ -1449,16 +1491,14 @@ def lost_phase(torch, ops, sobol) -> dict[str, dict]:
         for key, n in sorted(shapes.items(), key=lambda kv: -kv[1]):
             t = BY_KEY.setdefault(name, {}).get(key)
             if t is None:
-                fn, n_bytes, n_ops, rate, n_popc, pr16_ops = shape_case(torch, ops, sobol, name,
-                                                                        key, gen)
+                fn, n_bytes, n_ops, rate, n_popc, earlier = shape_case(torch, ops, sobol, name,
+                                                                       key, gen)
                 if launch_key(torch, ops, name, fn) != key:
                     raise AssertionError(f"{name}: the case for {key} launched another shape")
                 b_ms, b_by = bound_ms(n_bytes, n_ops, *rate, n_popc=n_popc)
                 rows_t: list = []
                 t = BY_KEY[name][key] = dict(device_ms=device_ms(torch, fn, 20, rows_t),
-                                             bound_ms=b_ms, bound_by=b_by)
-                if pr16_ops is not None:
-                    t["bound_ms_pr16"] = bound_ms(n_bytes, pr16_ops)[0]
+                                             bound_ms=b_ms, bound_by=b_by, **earlier)
                 emit("shape_time", kernel=name, key=key, **t, device_rows=rows_t[:4])
             lost = (n * (t["device_ms"] - t["bound_ms"]) if isinstance(t["device_ms"], float)
                     else "not measured")
@@ -1467,6 +1507,25 @@ def lost_phase(torch, ops, sobol) -> dict[str, dict]:
         out[name] = dict(launches_by_shape=shapes, shapes=rows, lost_ms=total,
                          unmeasured=[r["key"] for r in rows if not isinstance(r["lost_ms"], float)])
     return out
+
+
+def by_kernel_path(launches_by_shape: dict[str, int]) -> dict[str, int]:
+    """Launches by the ``path=`` of their shape keys (kernels with one path: {})."""
+    out: dict[str, int] = {}
+    for key, n in launches_by_shape.items():
+        path = parse_key(key).get("path")
+        if path is not None:
+            out[path] = out.get(path, 0) + n
+    return out
+
+
+def launch_floor(torch) -> None:
+    """The device time of a one-element PyTorch fill: the least a kernel launch
+    costs on the card, the floor under the latency-bound shapes."""
+    t = torch.empty(1, device="cuda")
+    rows: list = []
+    emit("launch_floor", call="Tensor.fill_ (1 element)",
+         device_ms=device_ms(torch, lambda: t.fill_(1.0), 20, rows), device_rows=rows)
 
 
 def sync(torch, dev) -> None:
@@ -1560,6 +1619,9 @@ def main() -> int:
     mxu = sass.get("encode_unary_mxu", {})
     if not (mxu.get("IGMMA", 0) > 0 and mxu.get("IMMA", 0) == 0):
         raise AssertionError(f"encode_unary_mxu's SASS is not warpgroup MMA alone: {mxu}")
+    if sass.get("hamming_packed", {}).get("BMMA", 0) <= 0:
+        raise AssertionError(f"hamming_packed's SASS holds no BMMA: {sass.get('hamming_packed')}")
+    launch_floor(torch)
 
     results = kernel_phase(torch, ops, ref, sobol, unary, encoding, prng)
     by_path = {}
@@ -1615,7 +1677,8 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "bound_share": t["bound_share"],
             "library_ms": t.get("library_ms"), "shape": t["shape"], "equal": True,
-            **{k: t[k] for k in ("bound_ms_direct_form", "bound_ms_pr16", "op_ms",
+            "launches_by_kernel_path": by_kernel_path(lost[name]["launches_by_shape"]),
+            **{k: t[k] for k in ("bound_ms_direct_form", "bound_ms_pr16", "bound_ms_popc", "op_ms",
                                  "operand_build_ms", "op_first_build_ms", "u_build_ms",
                                  "o_build_ms", "op_device_ms")
                if k in t},

@@ -13,9 +13,10 @@ driving each path and reads them after, to show that the path ran
 through the kernels and to price each shape's launches.  One call of
 ``hamming_topk`` is one launch on its warp path, else one scan launch
 plus its merge passes (:func:`topk_path`), one call of
-``hamming_packed`` one launch per 1,048,560 rows, and one call of
-``fit_bundle`` or ``fit_bundle_dynamic`` on its histogram path a
-histogram and a gather launch; each counts as one.
+``hamming_packed`` one launch per 1,048,560 rows on either path
+(:func:`packed_path`), and one call of ``fit_bundle`` or
+``fit_bundle_dynamic`` on its histogram path a histogram and a gather
+launch; each counts as one.
 """
 
 from __future__ import annotations
@@ -56,6 +57,10 @@ _DIR_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
 #: the kernel's
 TOPK_WARP_MAX_ROWS = 64
 _TOPK_PATHS = {"warp": 0, "select": 1}
+#: kernel 6's paths (``packed_path``): stores of at most this many rows take the warp
+#: path (one warp a query), larger ones the tensor-core path; the codes are the kernel's
+PACKED_WARP_MAX_ROWS = 64
+_PACKED_PATHS = {"warp": 0, "tensor": 1}
 _TABLE_DTYPES = (torch.int8, torch.int32)
 
 
@@ -346,10 +351,20 @@ def hamming_topk(
     return idx, dist
 
 
+def packed_path(n_rows: int) -> str:
+    """Which path of the packed-score kernel runs, from the row count alone:
+    ``"warp"`` for at most ``PACKED_WARP_MAX_ROWS`` rows (one warp a query,
+    every row's loads in flight at once), else ``"tensor"`` (binary
+    AND-popcount products on the tensor cores).  Both give the same
+    integers."""
+    return "warp" if n_rows <= PACKED_WARP_MAX_ROWS else "tensor"
+
+
 def hamming_packed(q_words: torch.Tensor, c_words: torch.Tensor, d: int) -> torch.Tensor:
     """Packed ±1 similarity, (B, W), (C, W) int32 words -> (B, C) int32
     scores d - 2 * popcount(q ^ c); ``d`` is the length of the packed
-    sign vectors (a shard's d_local under D-sharded serving).
+    sign vectors (a shard's d_local under D-sharded serving).  On a card
+    it runs the path :func:`packed_path` picks.
     Semantics: ``ref.hamming_packed``."""
     if _on_cpu(q_words, c_words):
         return ref.hamming_packed(q_words, c_words, d)
@@ -358,12 +373,14 @@ def hamming_packed(q_words: torch.Tensor, c_words: torch.Tensor, d: int) -> torc
     out = torch.empty((b, c), dtype=torch.int32, device=q.device)
     if b == 0 or c == 0:
         return out
+    path = packed_path(c)
     with torch.cuda.device(q.device):
         err = _build.library().uhd_hamming_packed(
-            _ptr(q), _ptr(rows), b, c, w, int(d), _ptr(out), _stream(q.device)
+            _ptr(q), _ptr(rows), b, c, w, int(d), _PACKED_PATHS[path], _ptr(out),
+            _stream(q.device),
         )
     _check(err, "hamming_packed")
-    _launched("hamming_packed", B=b, C=c, W=w)
+    _launched("hamming_packed", B=b, C=c, W=w, path=path)
     return out
 
 
@@ -419,8 +436,10 @@ def bundle_binarize(
 ) -> torch.Tensor:
     """Class bundling with the fused sign, (B, D) int, (B,) -> (C, D):
     int8 ±1 signs of the per-class sums (ties -> +1) with ``binarize``,
-    else the int32 sums.  Labels outside [0, n_classes) are dropped.
-    Semantics: ``ref.bundle_binarize`` over ``ref.class_onehot``."""
+    else the int32 sums.  Labels outside [0, n_classes) are dropped.  On
+    a card the batch is split over a thread-block cluster whose size the
+    launch key records.  Semantics: ``ref.bundle_binarize`` over
+    ``ref.class_onehot``."""
     if _on_cpu(hvs, labels):
         return ref.bundle_binarize(hvs, ref.class_onehot(labels, n_classes), binarize=binarize)
     if hvs.dim() != 2:
@@ -432,10 +451,13 @@ def bundle_binarize(
         raise ValueError(f"labels must be ({b},), got {tuple(lab.shape)}")
     out = torch.empty((n_classes, d), dtype=torch.int8 if binarize else torch.int32,
                       device=hv.device)
+    lib = _build.library()
     with torch.cuda.device(hv.device):
-        err = _build.library().uhd_bundle_binarize(
+        err = lib.uhd_bundle_binarize(
             _ptr(hv), _ptr(lab), b, n_classes, d, int(binarize), _ptr(out), _stream(hv.device)
         )
+        cluster = lib.uhd_bundle_binarize_cluster(n_classes, d, int(binarize),
+                                                  int(hv.data_ptr() % 16 == 0))
     _check(err, "bundle_binarize")
-    _launched("bundle_binarize", B=b, C=n_classes, D=d, binarize=bool(binarize))
+    _launched("bundle_binarize", B=b, C=n_classes, D=d, binarize=bool(binarize), cluster=cluster)
     return out

@@ -681,7 +681,14 @@ def test_cuda_encode_unary_mxu_equals_plain(cuda, b, k, d):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,d", [(7, 12, 1000), (512, 10, 8192), (300, 300, 65), (0, 3, 40)])
+@pytest.mark.parametrize(
+    "b,c,d",
+    [(7, 12, 1000), (512, 10, 8192), (300, 300, 65), (0, 3, 40),
+     # fewer rows than a cluster has blocks, the training step's batch, a batch that
+     # splits unevenly; one class and two C tiles; ragged D (element loads)
+     (1, 10, 8192), (2048, 10, 8192), (4097, 10, 2042), (7, 1, 1000), (300, 257, 2042),
+     (64, 257, 1000)],
+)
 @pytest.mark.parametrize("binarize", [True, False])
 def test_cuda_bundle_binarize_equals_plain(cuda, b, c, d, binarize):
     rng = np.random.default_rng(b + c + d)
@@ -690,9 +697,40 @@ def test_cuda_bundle_binarize_equals_plain(cuda, b, c, d, binarize):
     labels[::5] = -1
     labels[2::7] = c
     lab = _t(labels).to(cuda)
+    tops.reset_launches()
     got = tops.bundle_binarize(hv, lab, c, binarize=binarize)
     torch.cuda.synchronize()
     assert torch.equal(got, tref.bundle_binarize(hv, tref.class_onehot(lab, c), binarize=binarize))
+    # one launch, on a cluster of 1 to 8 blocks along B
+    (key,) = tops.LAUNCH_SHAPES["bundle_binarize"]
+    assert tops.LAUNCHES["bundle_binarize"] == 1 and key.split()[-1] in {
+        f"cluster={n}" for n in (1, 2, 4, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1000, 2048])
+def test_cuda_bundle_binarize_sums_reach_int32_limits(cuda, d):
+    # class 0 sums to 2**31 - 1 and class 1 to -(2**31 - 1), each through partial sums
+    # that pass the int32 range (the adds wrap, in whatever order the blocks take them);
+    # class 2 sums to 0 (its sign is +1); the rows spread over every block of a cluster
+    m = 2**31 - 1
+    b = 4096
+    hv = np.zeros((b, d), dtype=np.int64)
+    labels = np.full(b, 2, dtype=np.int32)
+    for cls, sign, rows in ((0, 1, (5, 1500, 4000)), (1, -1, (6, 2047, 4095))):
+        labels[list(rows)] = cls
+        hv[rows[0]] = hv[rows[1]] = sign * m
+        hv[rows[2]] = -sign * m
+    hv[labels == 2, ::7] = 3
+    hv[np.flatnonzero(labels == 2)[::2], ::7] = -3
+    hvt = _t(hv.astype(np.int32)).to(cuda)
+    lab = _t(labels).to(cuda)
+    sums = tops.bundle_binarize(hvt, lab, 3, binarize=False)
+    signs = tops.bundle_binarize(hvt, lab, 3, binarize=True)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, tref.bundle_binarize(hvt, tref.class_onehot(lab, 3), binarize=False))
+    assert (sums[0] == m).all() and (sums[1] == -m).all() and (sums[2] == 0).all()
+    assert signs.tolist() == [[1] * d, [-1] * d, [1] * d]
 
 
 @pytest.mark.cuda

@@ -84,7 +84,9 @@ def _packed(seed: int, b: int, c: int, d: int):
 
 
 @pytest.mark.parametrize(
-    "b,c,d", [(1, 1, 1), (5, 3, 31), (13, 10, 100), (37, 9, 1000), (64, 10, 2040), (3, 130, 257)]
+    "b,c,d",
+    [(1, 1, 1), (5, 3, 31), (13, 10, 100), (37, 9, 1000), (64, 10, 2040), (3, 130, 257),
+     (9, 64, 2040), (9, 65, 257)],  # both sides of the warp path's limit
 )
 def test_hamming_packed_equals_jax(b, c, d):
     q, rows = _packed(b * 31 + c + d, b, c, d)
@@ -99,6 +101,17 @@ def test_hamming_packed_equals_jax(b, c, d):
     np.testing.assert_array_equal(tref.hamming_packed(q, rows, d, block_c=4).numpy(), want)
 
 
+@pytest.mark.parametrize(
+    "n_rows,want",
+    [(1, "warp"), (10, "warp"), (63, "warp"), (64, "warp"), (65, "tensor"), (130, "tensor"),
+     (65548, "tensor"), (1048561, "tensor")],
+)
+def test_packed_path_chooses_from_shape(n_rows, want):
+    # a store of at most 64 rows gives each lane of a query's warp two scores; a larger
+    # one takes the binary products on the tensor cores; B and W do not enter the choice
+    assert tops.packed_path(n_rows) == want
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -106,14 +119,43 @@ def cuda():
     return torch.device("cuda")
 
 
+# (B, C, d, unaligned): the warp path (C <= 64) and the tensor path (C > 64) at one query,
+# a partial and a whole m16 / 64-query tile and one past it, d ragged (33, 2040) and whole;
+# the 64 MiB store; and rows that are a view off a 16-byte boundary (element loads)
+_PACKED_CASES = [
+    (64, 10, 8192, False), (64, 10, 2040, False), (37, 5000, 1000, False), (3, 7, 33, False),
+    *[(b, c, d, False) for b in (1, 63, 64, 65) for c in (1, 64, 65, 300, 5000)
+      for d in (33, 2040, 8192)],
+    *[(64, 65548, d, False) for d in (33, 2040, 8192)],
+    (5, 10, 8192, True), (65, 300, 8192, True), (17, 130, 2040, True),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,c,d", [(64, 10, 8192), (64, 10, 2040), (37, 5000, 1000), (3, 7, 33)])
-def test_cuda_hamming_packed_equals_plain(cuda, b, c, d):
-    q, rows = (t.to(cuda) for t in _packed(b + c + d, b, c, d))
+@pytest.mark.parametrize("b,c,d,unaligned", _PACKED_CASES)
+def test_cuda_hamming_packed_equals_plain(cuda, b, c, d, unaligned):
+    if c > 5000:  # the store: random words (a float per bit would take gigabytes)
+        rng = np.random.default_rng(d)
+        w = tunary.n_words(d)
+        q, rows = (torch.from_numpy(rng.integers(0, 2**32, (n, w), dtype=np.uint32).view(np.int32))
+                   for n in (b, c))
+        rows[c - 1] = rows[0]
+        rows[40_000] = q[0]
+    else:
+        q, rows = _packed(b + c + d, b, c, d)
+    q, rows = q.to(cuda), rows.to(cuda)
+    if unaligned:  # the same rows, 4 bytes past an aligned base
+        flat = torch.empty(rows.numel() + 1, dtype=torch.int32, device=cuda)
+        flat[1:] = rows.reshape(-1)
+        rows = flat[1:].view(rows.shape)
+        assert rows.data_ptr() % 16 != 0
     tops.reset_launches()
     got = tops.hamming_packed(q, rows, d)
     torch.cuda.synchronize()
+    path = "warp" if c <= 64 else "tensor"
     assert tops.LAUNCHES["hamming_packed"] == 1
+    assert list(tops.LAUNCH_SHAPES["hamming_packed"]) == [
+        f"B={b} C={c} W={rows.shape[1]} path={path}"]
     assert torch.equal(got, tref.hamming_packed(q, rows, d))
 
 
