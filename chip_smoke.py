@@ -27,14 +27,23 @@ Phases, each printed as one JSON object per line:
    shapes); the top-k store search's device time split into its scan and merge
    launches (``kernel_split``); and ``launch_floor``, the device time of a
    one-element PyTorch fill, the least a launch costs on the card;
-4. slice: ``repro_torch.launch.serve_hdc``'s smoke at the JAX smoke's
-   configuration (synth_mnist, d=8192, levels=16, 1024 training images, 256
-   requests in batches of 64), once with ``uhd_dynamic`` and once with ``uhd``,
-   with every kernel's launch count read around each run, the class sums of
-   both steps held against checksums from the JAX package, the served
-   accuracy against the JAX package's, the packed path against
-   ``HDCModel.predict``, ``search(k=3)[:, 0]`` against ``predict``, and the
-   ``uhd`` step-1 model converted to ``uhd_dynamic`` against itself;
+4. slice and serve_plane: ``repro_torch.launch.serve_hdc``'s smoke at the JAX
+   smoke's configuration (synth_mnist, d=8192, levels=16, 1024 training
+   images, 256 requests one at a time through the ``ModelRegistry`` and its
+   ``MicroBatcher`` in batches of 64, a hot reload to step 1 with the last 128
+   queued), once with ``uhd_dynamic`` and once with ``uhd``, with every
+   kernel's launch count read around each run (graph replays count the
+   kernels they run), the class sums of both steps held against checksums
+   from the JAX package, the served accuracy against the JAX package's, the
+   packed path against ``HDCModel.predict``, ``search(k=3)[:, 0]`` against
+   ``predict``, the ``uhd`` step-1 model converted to ``uhd_dynamic`` against
+   itself, and (``serve_plane``) the batcher's request latency, img/s,
+   occupancy, counters and graph replays, with each request's label against
+   the eager step of the engine that served it;
+4b. serve_pool: a ``ReplicaPool`` of two single-device replicas and one
+   4-shard replica of the card, promoted to step 1 by ``hot_reload`` while a
+   thread streams blocks of 8 requests: each block on one step, its labels
+   against the single engine's;
 5. train: ``repro_torch.launch.train_hdc`` at its defaults (uhd, d=8192, 4096
    training images in batches of 2048, 1024 test images), its class sums
    against the JAX package's checksum and its labels against the JAX
@@ -55,8 +64,9 @@ Phases, each printed as one JSON object per line:
    ``ShardedExecution`` on 1 and 4 shards, against the single-device search;
 9. train_shard_map: ``train_hdc --shard-map --ckpt-shards 4`` at its defaults,
    its class sums against the JAX package's checksum, and the round trip;
-10. slice_baseline: the serving smoke with the paper's baseline encoder, its
-   class sums and served accuracy against the JAX package's (kernels 7, 8, 5);
+10. slice_baseline: the serving smoke (and its serve_plane line) with the
+   paper's baseline encoder, its class sums and served accuracy against the
+   JAX package's (kernels 7, 8, 5);
 11. slice_policy: the baseline smoke's step-1 model under non-default scoring
    policies (``class_binarize="none"``, ``binarize_query=True``,
    ``similarity="hamming"``), checkpointed and served through a
@@ -67,8 +77,10 @@ Phases, each printed as one JSON object per line:
    each retrain is trained: the launcher keeps no retrained model), and the
    checkpoint round trip;
 13. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
-   encoder, on one device and on 4 shards: device time per batch by kernel,
-   and the device's idle share.
+   encoder, on one device and on 4 shards, the eager step
+   (``engine.execution.predict``) beside the engine's CUDA-graph replay
+   (``engine.predict``): wall ms a batch, device time a batch by kernel, and
+   the device's idle share; a replay's device time also by CUDA events.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -1036,9 +1048,17 @@ def sha256_of(sums) -> str:
     return hashlib.sha256(sums.cpu().numpy().astype("<i4").tobytes()).hexdigest()
 
 
-def slice_phase(torch, ops, serve_hdc, encoder: str, kernels: tuple[str, ...],
+def slice_phase(torch, ops, serve_hdc, load_dataset, encoder: str, kernels: tuple[str, ...],
                 absent: tuple[str, ...] = ()):
-    """The serving smoke at the JAX smoke's configuration, launches counted."""
+    """The serving smoke at the JAX smoke's configuration, launches counted:
+    ``serve_hdc.smoke`` registers step 0 behind the ``MicroBatcher`` and
+    serves 128 requests one at a time, trains step 1 and hot-reloads to it
+    with the other 128 queued.  Emits the ``slice`` checks (class sums,
+    accuracy, search) and the ``serve_plane`` line (the batcher's latency,
+    throughput, occupancy and counters, the graph replays, and the served
+    labels against each step's eager step)."""
+    import numpy as np
+
     ckpt = ROOT / "build" / f"chip_smoke_ckpt_{encoder}"
     args = serve_hdc.parser().parse_args([
         "--smoke", "--dataset", "synth_mnist", "--encoder", encoder, "--d", "8192",
@@ -1076,18 +1096,43 @@ def slice_phase(torch, ops, serve_hdc, encoder: str, kernels: tuple[str, ...],
         raise AssertionError("search distances are not ascending")
     if round(result.accuracy, 4) != round(want_acc, 4):
         raise AssertionError(f"{encoder} served accuracy {result.accuracy} != JAX's {want_acc}")
+    emit("slice", encoder=encoder, accuracy=result.accuracy, jax_accuracy=want_acc,
+         n_requests=len(result.labels), batch=args.batch, fit_s=result.fit_s[0],
+         partial_fit_s=result.fit_s[1], packed_parity=True, search_top1_equals_predict=True,
+         converted_to_uhd_dynamic_predicts_equal=True if converted is not None else None)
 
-    batch_ms = [t * 1e3 for s in result.serve for t in s.batch_s]
-    n_served = sum(len(s.labels) for s in result.serve)
-    serve_s = sum(s.wall_s for s in result.serve)
+    # the batcher's labels against each step's eager step, request by request
+    stream = load_dataset("synth_mnist", n_train=1024, n_test=256).test_images
+    half = len(stream) // 2
+    eager_equal = []
+    for step, (e, sl) in enumerate(zip(result.engines, (slice(0, half), slice(half, None)))):
+        eager = uncounted(ops, lambda e=e, sl=sl: e.execution.predict(
+            e.model, e.class_words, stream[sl]).cpu().numpy())
+        eager_equal.append(bool((result.labels[sl] == eager).all()))
+    steps_ok = result.steps.tolist() == [0] * half + [1] * (len(stream) - half)
+    snap = result.metrics
+    lat = [s.latency_s for s in result.served]
+    serve_s = sum(s.wall_s for s in result.served)
     emit(
-        "slice", encoder=encoder, accuracy=result.accuracy, jax_accuracy=want_acc,
-        n_requests=n_served, batch=args.batch, fit_s=result.fit_s[0],
-        partial_fit_s=result.fit_s[1], batch_ms_mean=sum(batch_ms) / len(batch_ms),
-        batch_ms_max=max(batch_ms), batch_ms_first=batch_ms[0], img_per_s=n_served / serve_s,
-        packed_parity=True, search_top1_equals_predict=True,
-        converted_to_uhd_dynamic_predicts_equal=True if converted is not None else None,
+        "serve_plane", encoder=encoder, n_requests=snap["n_requests"], batch=args.batch,
+        p50_ms=snap["p50_ms"], p99_ms=snap["p99_ms"], mean_ms=snap["mean_ms"],
+        p50_ms_before_reload=float(np.percentile(lat[0], 50) * 1e3),
+        p99_ms_before_reload=float(np.percentile(lat[0], 99) * 1e3),
+        p50_ms_queued_at_reload=float(np.percentile(lat[1], 50) * 1e3),
+        img_per_s=len(result.labels) / serve_s, serve_s=serve_s,
+        batch_occupancy=snap["batch_occupancy"], n_batches=snap["n_batches"],
+        n_reloads=snap["n_reloads"], n_errors=snap["n_errors"],
+        queued_at_reload=result.queued_at_reload,
+        graph_replays=[e.n_replays for e in result.engines],
+        graphs=[e.describe()["graphs"] for e in result.engines],
+        device_stage_ms=snap["stages"]["device"]["p50_ms"],
+        queue_stage_ms=snap["stages"]["queue"]["p50_ms"],
+        steps_by_request_ok=steps_ok, labels_equal_eager=eager_equal,
     )
+    if not (snap["n_errors"] == 0 and snap["n_reloads"] == 1 and snap["n_requests"] == 256
+            and result.queued_at_reload == half and steps_ok and all(eager_equal)
+            and all(e.n_replays > 0 for e in result.engines)):
+        raise AssertionError(f"the {encoder} serving plane failed its checks")
     return launches, result
 
 
@@ -1214,6 +1259,25 @@ def item_memory_phase(torch, ops, ref, ItemMemory):
     return launches, stored
 
 
+def serve_batches(engine, images, batch: int):
+    """Serve `images` through ``engine.predict`` in static batches of `batch`
+    rows (the last padded), each timed on the host clock; the predict
+    returns host labels, so its time covers the device's work.  Returns
+    (labels, seconds of each batch)."""
+    import numpy as np
+
+    labels, times = [], []
+    for i in range(0, len(images), batch):
+        chunk = images[i : i + batch]
+        padded = np.zeros((batch,) + chunk.shape[1:], chunk.dtype)
+        padded[: len(chunk)] = chunk
+        t0 = time.perf_counter()
+        out = engine.predict(padded)
+        times.append(time.perf_counter() - t0)
+        labels.append(out[: len(chunk)])
+    return np.concatenate(labels).astype(np.int32), times
+
+
 def sharded_phase(torch, ops, api, encoder: str, d: int, dev):
     """D-sharded training and serving at the smoke's configuration (the
     baseline encoder's shards run kernels 7 and 8 at D / 4 columns).
@@ -1281,10 +1345,10 @@ def sharded_phase(torch, ops, api, encoder: str, d: int, dev):
     def serve(execution):
         engines = [api.ServingEngine.from_checkpoint(ckpt, step=s, batch_size=64,
                                                      execution=execution) for s in (0, 1)]
-        stats = [api.serve_batches(engines[0], ds.test_images[:128], 64),
-                 api.serve_batches(engines[1], ds.test_images[128:], 64)]
-        labels = np.concatenate([st.labels for st in stats])
-        return engines[1], labels, engines[1].search(probe, 3), stats[0].batch_s + stats[1].batch_s
+        stats = [serve_batches(engines[0], ds.test_images[:128], 64),
+                 serve_batches(engines[1], ds.test_images[128:], 64)]
+        labels = np.concatenate([st[0] for st in stats])
+        return engines[1], labels, engines[1].search(probe, 3), stats[0][1] + stats[1][1]
 
     _, want_labels, (want_i, want_d), single_s = serve(api.DeviceExecution(device=dev))
     engine = None
@@ -1359,18 +1423,18 @@ def policy_phase(torch, ops, api, model, dev):
 
     def serve():
         engine = api.ServingEngine.from_checkpoint(ckpt, step=0, batch_size=64, device=dev)
-        return api.serve_batches(engine, ds.test_images, 64)
+        return serve_batches(engine, ds.test_images, 64)
 
-    stats, launches = path_launches(ops, "slice_policy", ("encode_unary_mxu", "hamming_topk"),
-                                    serve)
+    (served, batch_s), launches = path_launches(
+        ops, "slice_policy", ("encode_unary_mxu", "hamming_topk"), serve)
     want = np.asarray([int(c) for c in JAX_POLICY_LABELS])
     direct = policy_model.predict(ds.test_images).cpu().numpy()
-    served_equal, direct_equal = bool((stats.labels == want).all()), bool((direct == want).all())
-    acc = float((stats.labels == ds.test_labels).mean())
+    served_equal, direct_equal = bool((served == want).all()), bool((direct == want).all())
+    acc = float((served == ds.test_labels).mean())
     emit("slice_policy", encoder=model.cfg.encoder, policy=JAX_POLICY, accuracy=acc,
          jax_accuracy=JAX_POLICY_ACCURACY, served_labels_equal_jax=served_equal,
          predict_labels_equal_jax=direct_equal,
-         batch_ms_mean=1e3 * sum(stats.batch_s) / len(stats.batch_s))
+         batch_ms_mean=1e3 * sum(batch_s) / len(batch_s))
     if not (served_equal and direct_equal and acc == JAX_POLICY_ACCURACY):
         raise AssertionError("the non-default policy's labels differ from the JAX package's")
     return launches
@@ -1533,21 +1597,31 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def profile_phase(torch, engine, images, label: str) -> None:
-    """Device time of steady-state predict batches by kernel, and the
-    device's idle share of the batch wall time (``torch.profiler``)."""
+def _profile_step(torch, fn, n: int, n_wall: int = 200) -> dict:
+    """Wall ms a batch of fn (each call ends with the labels on the host)
+    over n_wall calls on the host clock, without the profiler (whose
+    tracing adds its own host time, and a first traced graph replay pays
+    a set-up of its own); then the device time of the kernels and copies
+    that ``torch.profiler`` traces in n calls, by row.  The idle share is
+    1 - device ms / wall ms."""
+    import statistics
+
     from torch.profiler import ProfilerActivity, profile
 
-    batch = len(images)
-    engine.predict(images)
+    fn()
     torch.cuda.synchronize()
-    n = 16
+    walls = []
+    for _ in range(n_wall):
+        t0 = time.perf_counter()
+        fn()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = 1e3 * sum(walls) / n_wall
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            engine.predict(images)
+            fn()
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+        profiled_us = (time.perf_counter() - t0) * 1e6
     # device-side rows only (kernels, copies): a CPU op's row repeats the
     # device time of the kernels it launched
     rows = [
@@ -1556,18 +1630,131 @@ def profile_phase(torch, engine, images, label: str) -> None:
         if e.device_type == torch.autograd.DeviceType.CUDA
     ]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    device_us = sum(r[1] for r in rows)
-    if not rows:
-        emit("profile", engine=label, batch=batch, batches=n,
-             wall_ms_per_batch=wall_us / n / 1e3, device_ms_per_batch="not measured",
-             idle_share="not measured")
-        return
-    emit(
-        "profile", engine=label, batch=batch, batches=n, wall_ms_per_batch=wall_us / n / 1e3,
-        device_ms_per_batch=device_us / n / 1e3, idle_share=1.0 - device_us / wall_us,
-        top=[{"name": k[:90], "ms_per_batch": t / n / 1e3, "calls_per_batch": c / n}
-             for k, t, c in rows[:12]],
-    )
+    device_ms = sum(r[1] for r in rows) / n / 1e3
+    return dict(wall_ms_per_batch=wall_ms,
+                wall_ms_p50=1e3 * statistics.median(walls),
+                wall_ms_profiled=profiled_us / n / 1e3,
+                device_ms_per_batch=device_ms if rows else "not measured",
+                idle_share=1.0 - device_ms / wall_ms if rows else "not measured",
+                top=[{"name": k[:90], "ms_per_batch": t / n / 1e3, "calls_per_batch": c / n}
+                     for k, t, c in rows[:12]])
+
+
+def replay_device_ms(torch, engine, n: int) -> float:
+    """Device ms of one replay of the engine's predict graph by CUDA events
+    around n back-to-back replays on the engine's stream (the host enqueues
+    a replay faster than the device runs one, so the stream never idles)."""
+    graph = engine._graphs[("predict", 0)].graph
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch.cuda.stream(engine.stream):
+        graph.replay()
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profile_phase(torch, engine, images, label: str) -> None:
+    """Steady-state predict batches of the engine, the eager step
+    (``engine.execution.predict``, a pageable copy in and out) beside the
+    CUDA-graph replay (``engine.predict``): wall ms a batch (host clock),
+    the device time a batch by kernel (``torch.profiler``) and the device's
+    idle share.
+    Where the profiler lists a replay without its kernels, the replay's
+    device time is read from CUDA events instead (``device_source``); the
+    events' reading is reported beside the profiler's in any case."""
+    n = 16
+    eager = _profile_step(
+        torch, lambda: engine.execution.predict(engine.model, engine.class_words, images)
+        .cpu().numpy(), n)
+    graph = _profile_step(torch, lambda: engine.predict(images), n)
+    events_ms = replay_device_ms(torch, engine, 50)
+    graph["device_ms_events"] = events_ms
+    graph["device_source"] = "profiler"
+    if not isinstance(graph["device_ms_per_batch"], float):
+        graph["device_source"] = "events (the profiler traced no kernel of the replay)"
+        graph["device_ms_per_batch"] = events_ms
+        graph["idle_share"] = 1.0 - events_ms / graph["wall_ms_per_batch"]
+    emit("profile", engine=label, batch=len(images), batches=n, eager=eager, graph=graph,
+         wall_speedup=eager["wall_ms_per_batch"] / graph["wall_ms_per_batch"])
+
+
+def serve_pool_phase(torch, ops, api, result, dev):
+    """A ``ReplicaPool`` of two ``DeviceExecution`` replicas and one 4-shard
+    ``ShardedExecution`` replica of the card, registered from the ``uhd``
+    smoke's checkpoint (step 0), serving blocks of 8 requests from a thread
+    while ``hot_reload`` promotes every replica to step 1: each block's
+    labels against the single engine of its step (eager), each block on one
+    step, every replica at step 1 after one promotion."""
+    import threading
+
+    import numpy as np
+
+    ds = api.load_dataset("synth_mnist", n_train=1024, n_test=256)
+    ckpt = result.engines[0].source
+    blocks = [ds.test_images[i : i + 8] for i in range(0, 256, 8)]
+
+    def run():
+        registry = api.ModelRegistry()
+        try:
+            engines = [api.ServingEngine.from_checkpoint(ckpt, step=0, batch_size=64,
+                                                         execution=ex).warmup()
+                       for ex in (api.DeviceExecution(device=dev), api.DeviceExecution(device=dev),
+                                  api.ShardedExecution(devices=[dev] * 4))]
+            pool = registry.register_pool("uhd", engines, start=True)
+            served, stop = [], threading.Event()
+
+            def traffic():
+                for i in range(10**6):
+                    if stop.is_set():
+                        return
+                    served.append((i % len(blocks), pool.submit_block(blocks[i % len(blocks)])))
+                    time.sleep(0.0005)
+
+            t = threading.Thread(target=traffic, daemon=True)
+            t.start()
+            try:
+                while len(served) < 64:
+                    time.sleep(0.001)
+                t0 = time.perf_counter()
+                step = registry.hot_reload("uhd", step=1)
+                reload_s = time.perf_counter() - t0
+                n = len(served)
+                while len(served) < n + 64:
+                    time.sleep(0.001)
+            finally:
+                stop.set()
+                t.join(60)
+            out = [(i, [f.result(timeout=60) for f in futs], {f.trace.step for f in futs})
+                   for i, futs in served]
+            pool.stop()
+            return pool, step, reload_s, out
+        finally:
+            registry.shutdown()
+
+    (pool, step, reload_s, out), launches = path_launches(
+        ops, "serve_pool", ("encode_bundle", "hamming_topk", "hamming_packed"), run)
+    want = {s: uncounted(ops, lambda e=e: e.execution.predict(
+        e.model, e.class_words, ds.test_images).cpu().numpy().reshape(-1, 8))
+        for s, e in enumerate(result.engines)}
+    one_step = all(len(steps) == 1 for _, _, steps in out)
+    equal = one_step and all(labels == want[next(iter(steps))][i].tolist()
+                             for i, labels, steps in out)
+    merged = pool.merged_metrics()
+    emit("serve_pool", replicas=[r.engine.describe()["placement"] for r in pool.replicas],
+         blocks=len(out), steps_seen=sorted({next(iter(s)) for _, _, s in out}),
+         each_block_one_step=one_step, labels_equal_single_engine=equal,
+         replica_steps=[r.engine.step for r in pool.replicas], pool_reloads=pool.metrics.n_reloads,
+         reload_s=reload_s, n_dispatched=[int(c) for c in pool.n_dispatched],
+         n_requests=merged.n_requests, n_errors=merged.n_errors,
+         graph_replays=[r.engine.n_replays for r in pool.replicas])
+    if not (step == 1 and equal and [r.engine.step for r in pool.replicas] == [1, 1, 1]
+            and pool.metrics.n_reloads == 1 and merged.n_errors == 0
+            and merged.n_requests == 8 * len(out)):
+        raise AssertionError("the replica pool failed its checks")
+    return launches
 
 
 def main() -> int:
@@ -1587,13 +1774,16 @@ def main() -> int:
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.launch import serve_hdc, train_hdc
     from repro_torch.launch.mesh import mesh_for
-    from repro_torch.serving import DeviceExecution, ServingEngine, ShardedExecution
+    from repro_torch.serving import (
+        DeviceExecution, ModelRegistry, ServingEngine, ShardedExecution,
+    )
 
     api = SimpleNamespace(
         CheckpointManager=CheckpointManager, DeviceExecution=DeviceExecution,
-        HDCConfig=HDCConfig, HDCModel=HDCModel, ServingEngine=ServingEngine,
+        HDCConfig=HDCConfig, HDCModel=HDCModel, ModelRegistry=ModelRegistry,
+        ServingEngine=ServingEngine,
         ShardedExecution=ShardedExecution, load_dataset=load_dataset, mesh_for=mesh_for,
-        partial_fit_sharded=partial_fit_sharded, serve_batches=serve_hdc.serve_batches,
+        partial_fit_sharded=partial_fit_sharded,
     )
 
     kind = torch.cuda.get_device_name(0)
@@ -1626,16 +1816,17 @@ def main() -> int:
     results = kernel_phase(torch, ops, ref, sobol, unary, encoding, prng)
     by_path = {}
     by_path["slice_uhd_dynamic"], result_dyn = slice_phase(
-        torch, ops, serve_hdc, "uhd_dynamic",
+        torch, ops, serve_hdc, load_dataset, "uhd_dynamic",
         ("encode_bundle_dynamic", "fit_bundle_dynamic", "hamming_topk"),
     )
     by_path["slice_uhd"], result_uhd = slice_phase(
-        torch, ops, serve_hdc, "uhd",
+        torch, ops, serve_hdc, load_dataset, "uhd",
         ("encode_bundle", "fit_bundle", "hamming_topk", "encode_bundle_dynamic"),
     )
+    dev = torch.device("cuda", torch.cuda.current_device())
+    by_path["serve_pool"] = serve_pool_phase(torch, ops, api, result_uhd, dev)
     by_path["train_hdc"] = train_phase(torch, ops, train_hdc, load_dataset)
     by_path["item_memory"], stored = item_memory_phase(torch, ops, ref, ItemMemory)
-    dev = torch.device("cuda", torch.cuda.current_device())
     sharded_engines = {}
     for encoder, d in [("uhd_dynamic", 8192), ("uhd", 8192), ("uhd_dynamic", 8160),
                        ("uhd", 8160), ("baseline", 8192)]:
@@ -1649,7 +1840,7 @@ def main() -> int:
                    "hamming_packed")
     builds0 = encoding.BASELINE_OPERANDS.builds
     by_path["slice_baseline"], result_base = slice_phase(
-        torch, ops, serve_hdc, "baseline", ("encode_unary_mxu", "bundle_binarize", "hamming_topk"),
+        torch, ops, serve_hdc, load_dataset, "baseline", ("encode_unary_mxu", "bundle_binarize", "hamming_topk"),
         uhd_kernels,
     )
     emit("operand_cache", path="slice_baseline", builds=encoding.BASELINE_OPERANDS.builds - builds0)

@@ -214,6 +214,19 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def poll_latest(self, after: int | None = None) -> int | None:
+        """Newest complete step strictly newer than `after`, else None.
+
+        The hot-reload poll: serving watches a checkpoint directory and
+        swaps engines only when the trainer has published (atomically
+        renamed) a step it has not loaded yet.  `after=None` degrades to
+        `latest_step`.
+        """
+        latest = self.latest_step()
+        if latest is None or (after is not None and latest <= after):
+            return None
+        return latest
+
     def _manifest(self, step: int) -> dict:
         return json.loads((self.root / f"step_{step:09d}" / "manifest.json").read_text())
 

@@ -15,6 +15,8 @@ switch.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 import weakref
 
 import numpy as np
@@ -139,11 +141,14 @@ class BaselineOperandCache:
     is another tensor or was edited in place (its ``_version`` moved).
     It lives as long as its ``p`` tensor.  O is not model state: not a
     codebook, not in a manifest or a checkpoint.  ``builds`` counts the
-    builds."""
+    builds.  A CUDA graph captured over the baseline reads O by address,
+    so its owner takes the O's it read from :meth:`holding` and keeps
+    them as long as the graph."""
 
     def __init__(self) -> None:
         self._entries: dict[tuple[int, int], tuple] = {}
         self.builds = 0
+        self._held = threading.local()
 
     def get(self, p: torch.Tensor, level: torch.Tensor) -> torch.Tensor:
         from repro_torch.kernels import ref as kref
@@ -152,13 +157,27 @@ class BaselineOperandCache:
         stamp = (p._version, level._version, p.data_ptr(), level.data_ptr())
         hit = self._entries.get(key)
         if hit is not None and hit[0]() is p and hit[1]() is level and hit[2] == stamp:
-            return hit[3]
-        o = kref.baseline_onehot_t(p, level)
-        if hit is None:
-            weakref.finalize(p, self._entries.pop, key, None)
-        self._entries[key] = (weakref.ref(p), weakref.ref(level), stamp, o)
-        self.builds += 1
+            o = hit[3]
+        else:
+            o = kref.baseline_onehot_t(p, level)
+            if hit is None:
+                weakref.finalize(p, self._entries.pop, key, None)
+            self._entries[key] = (weakref.ref(p), weakref.ref(level), stamp, o)
+            self.builds += 1
+        held = getattr(self._held, "operands", None)
+        if held is not None:
+            held.append(o)
         return o
+
+    @contextlib.contextmanager
+    def holding(self):
+        """A list of every O this thread gets while inside the block."""
+        operands: list[torch.Tensor] = []
+        self._held.operands = operands
+        try:
+            yield operands
+        finally:
+            self._held.operands = None
 
     def clear(self) -> None:
         self._entries.clear()

@@ -16,12 +16,16 @@ plus its merge passes (:func:`topk_path`), one call of
 ``hamming_packed`` one launch per 1,048,560 rows on either path
 (:func:`packed_path`), and one call of ``fit_bundle`` or
 ``fit_bundle_dynamic`` on its histogram path a histogram and a gather
-launch; each counts as one.
+launch; each counts as one.  A kernel captured into a CUDA graph
+counts once at each replay of the graph, not at the capture
+(:func:`recording`, :func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import threading
 
 import torch
 
@@ -64,16 +68,47 @@ _PACKED_PATHS = {"warp": 0, "tensor": 1}
 _TABLE_DTYPES = (torch.int8, torch.int32)
 
 
+_count_lock = threading.Lock()
+_capturing = threading.local()
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-        LAUNCH_SHAPES[name].clear()
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+            LAUNCH_SHAPES[name].clear()
+
+
+def add_launches(launches: list[tuple[str, str]]) -> None:
+    """Count launches given as (wrapper name, shape key) pairs: the
+    kernels a CUDA graph replay runs (see :func:`recording`)."""
+    with _count_lock:
+        for name, key in launches:
+            LAUNCHES[name] += 1
+            LAUNCH_SHAPES[name][key] = LAUNCH_SHAPES[name].get(key, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Collect this thread's launches as (name, shape key) pairs instead of
+    counting them: under a CUDA graph capture a wrapper's kernel is
+    recorded into the graph, not run, and runs at each replay, which
+    counts the list with :func:`add_launches`."""
+    launches: list[tuple[str, str]] = []
+    _capturing.launches = launches
+    try:
+        yield launches
+    finally:
+        _capturing.launches = None
 
 
 def _launched(name: str, **dims) -> None:
-    LAUNCHES[name] += 1
     key = " ".join(f"{k}={v}" for k, v in dims.items())
-    LAUNCH_SHAPES[name][key] = LAUNCH_SHAPES[name].get(key, 0) + 1
+    captured = getattr(_capturing, "launches", None)
+    if captured is not None:
+        captured.append((name, key))
+    else:
+        add_launches([(name, key)])
 
 
 def _dtype_name(t: torch.Tensor) -> str:

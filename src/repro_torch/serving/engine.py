@@ -7,19 +7,75 @@ and binarizes and packs the (C, D) class sums into words once, in the
 backend's layout; after that every request batch is encode -> pack ->
 XOR + popcount -> nearest class.  Engines are immutable: a reload builds
 a new engine from a newer step.
+
+Where every shard of the engine lies on one CUDA device (a
+``DeviceExecution`` on a card, or a ``ShardedExecution`` whose shards
+all name that card), the step at the static shape ``(batch_size,
+n_features)`` is a CUDA graph: the counterpart of the JAX engine's one
+jitted predict compiled per static shape.  :meth:`ServingEngine.warmup`
+captures the ``predict`` graph; a ``search`` graph is captured for each
+k at its first call.  A graph holds the copy of the batch from a pinned
+staging buffer (:attr:`ServingEngine.staging`) into a static device
+input, every op and kernel launch of the step, and the copy of the
+results into pinned host buffers.  Other batch sizes run the step
+eagerly, as a new shape retraces in JAX; so does every step on the CPU
+(which has no graphs) and on a mesh over several cards.  A capture that
+fails raises: there is no fallback to the eager step.
+
+Every step, eager or replayed, runs on the engine's own stream
+(:attr:`ServingEngine.stream`, not the default stream) and is waited on
+with an event, never a device-wide synchronise: a hot reload captures
+the new engine's graph on the caller's thread while the drain thread
+still serves the old engine, and work on the default stream or a
+device-wide wait from either thread would break that capture.  One step
+runs at a time on an engine.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from repro_torch.core import encoding
 from repro_torch.core.hdc_model import HDCModel
+from repro_torch.kernels import ops
 from repro_torch.serving.execution import DeviceExecution, ShardedExecution, resolve_impl
 
-__all__ = ["ServingEngine", "resolve_impl"]
+__all__ = ["OP_PREDICT", "ServingEngine", "resolve_impl"]
+
+#: The step tags: ("predict", 0) resolves to labels, ("search", k) to the
+#: k nearest rows; each tag is one graph of an engine.
+OP_PREDICT = ("predict", 0)
+
+
+def _graph_device(model) -> torch.device | None:
+    """The one CUDA device every shard of a placed model lies on, or None
+    (the CPU, or a mesh over several cards: those run eagerly)."""
+    shards = getattr(model, "shards", None)
+    devs = {sh.device for sh in shards} if shards is not None else {model.device}
+    if len(devs) != 1:
+        return None
+    (dev,) = devs
+    if dev.type != "cuda":
+        return None
+    return torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+class _Graph:
+    """One captured step: the graph, its pinned host outputs, the kernel
+    launches each replay runs, and the cached operands it reads."""
+
+    __slots__ = ("graph", "outputs", "launches", "operands")
+
+    def __init__(self, graph, outputs, launches, operands):
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = launches
+        self.operands = operands
 
 
 class ServingEngine:
@@ -43,6 +99,23 @@ class ServingEngine:
         self.source = Path(source) if source is not None else None
         # pack ONCE at load: per-request work never touches the class sums
         self.class_words = self.execution.pack(self.model)
+        out = self.model.device
+        self._graph_device = _graph_device(self.model)
+        self.stream = torch.cuda.Stream(device=out) if out.type == "cuda" else None
+        if self.stream is not None:
+            # the model and its words were made on the loading thread's stream
+            self.stream.wait_stream(torch.cuda.current_stream(out))
+        self._lock = threading.RLock()
+        shape = (self.batch_size, self.model.cfg.n_features)
+        self._staging = torch.zeros(shape, dtype=torch.float32, pin_memory=out.type == "cuda")
+        #: (batch_size, n_features) float32 rows, pinned on a card: the batch
+        #: a step reads, written by the batcher inside :meth:`staged`
+        self.staging = self._staging.numpy()
+        self._input: torch.Tensor | None = None  # the graphs' static device input
+        self._pool = None
+        self._graphs: dict[tuple[str, int], _Graph] = {}
+        self._done = torch.cuda.Event() if self.stream is not None else None
+        self.n_replays = 0  # steps served by a graph replay
 
     @classmethod
     def from_checkpoint(
@@ -70,26 +143,103 @@ class ServingEngine:
 
     def predict(self, images) -> np.ndarray:
         """(B, H) raw images -> (B,) int32 labels (host numpy)."""
-        labels = self.execution.predict(self.model, self.class_words, images)
-        return labels.cpu().numpy()
+        return self._run(OP_PREDICT, images)
 
     def search(self, images, k: int) -> tuple[np.ndarray, np.ndarray]:
         """(B, H) raw images -> ((B, k) int32 row indices, (B, k) int32
         Hamming distances), ascending by (distance, index); ``k=1``
         indices equal `predict`'s labels."""
-        idx, dist = self.execution.search(self.model, self.class_words, images, int(k))
-        return idx.cpu().numpy(), dist.cpu().numpy()
+        return self._run(("search", int(k)), images)
+
+    @contextlib.contextmanager
+    def staged(self):
+        """Hold the engine for one step and yield :attr:`staging`: write the
+        batch into it, then pass it to `predict` or `search`, which read
+        it in place."""
+        with self._lock:
+            yield self.staging
 
     def warmup(self) -> "ServingEngine":
-        """Run one static-shape batch (builds the kernels on a card)."""
-        dummy = torch.zeros(
-            (self.batch_size, self.model.cfg.n_features), dtype=torch.float32,
-            device=self.model.device,
-        )
-        self.execution.predict(self.model, self.class_words, dummy)
-        if self.model.device.type == "cuda":
-            torch.cuda.synchronize(self.model.device)
+        """Prepare the static-shape predict before taking traffic: capture
+        its CUDA graph (two eager steps first build the kernels and the
+        cached operands), or, where the engine has no graph, run one
+        eager step."""
+        with self._lock:
+            if self._graph_device is not None:
+                self._graph(OP_PREDICT)
+            else:
+                self._eager(OP_PREDICT, self._staging)
         return self
+
+    def _run(self, op: tuple[str, int], images):
+        with self._lock:
+            if self._graph_device is None or len(images) != self.batch_size:
+                return self._eager(op, images)
+            if images is not self.staging:
+                x = torch.as_tensor(images)
+                if x.shape != self._staging.shape:
+                    raise ValueError(f"expected ({self.batch_size}, n_features) images, "
+                                     f"got {tuple(x.shape)}")
+                self._staging.copy_(x)
+            return self._replay(self._graph(op))
+
+    def _step(self, op: tuple[str, int], images) -> tuple[torch.Tensor, ...]:
+        if op[0] == "search":
+            return self.execution.search(self.model, self.class_words, images, op[1])
+        return (self.execution.predict(self.model, self.class_words, images),)
+
+    def _on_stream(self):
+        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+
+    def _eager(self, op: tuple[str, int], images):
+        with self._on_stream():
+            out = tuple(t.cpu().numpy() for t in self._step(op, images))
+        return out if op[0] == "search" else out[0]
+
+    def _graph(self, op: tuple[str, int]) -> _Graph:
+        g = self._graphs.get(op)
+        if g is None:
+            g = self._graphs[op] = self._capture(op)
+        return g
+
+    def _capture(self, op: tuple[str, int]) -> _Graph:
+        """Two eager steps on the engine's stream, then one capture of the
+        step at the static shape; raises if the capture fails."""
+        dev = self._graph_device
+        rows = (self.batch_size, op[1]) if op[0] == "search" else (self.batch_size,)
+        outputs = tuple(torch.empty(rows, dtype=torch.int32, pin_memory=True)
+                        for _ in range(2 if op[0] == "search" else 1))
+        with torch.cuda.device(dev), self._on_stream():
+            if self._input is None:
+                self._input = torch.empty(self._staging.shape, dtype=torch.float32, device=dev)
+                self._pool = torch.cuda.graph_pool_handle()
+            for _ in range(2):
+                self._input.copy_(self._staging, non_blocking=True)
+                self._step(op, self._input)
+            self.stream.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with ops.recording() as launches, encoding.BASELINE_OPERANDS.holding() as operands:
+                graph.capture_begin(pool=self._pool, capture_error_mode="thread_local")
+                try:
+                    self._input.copy_(self._staging, non_blocking=True)
+                    for host, t in zip(outputs, self._step(op, self._input)):
+                        host.copy_(t, non_blocking=True)
+                except BaseException:
+                    with contextlib.suppress(RuntimeError):
+                        graph.capture_end()  # ends the failed capture; its error is the one above
+                    raise
+                graph.capture_end()
+        return _Graph(graph, outputs, launches, operands)
+
+    def _replay(self, g: _Graph):
+        with self._on_stream():
+            g.graph.replay()
+            self._done.record(self.stream)
+        self._done.synchronize()
+        self.n_replays += 1
+        ops.add_launches(g.launches)
+        out = tuple(t.numpy().copy() for t in g.outputs)
+        return out if len(out) == 2 else out[0]
 
     def describe(self) -> dict:
         cfg = self.model.cfg
@@ -108,4 +258,10 @@ class ServingEngine:
             "n_seen": self.model.n_examples,
             "packed_bytes": 4 * sum(w.numel() for w in words),
             "codebook_bytes": int(self.model.codebook_bytes),
+            "graph": self._graph_device is not None,
+            "n_replays": self.n_replays,
+            "graphs": [
+                {"op": op[0], "k": op[1], "shape": [self.batch_size, cfg.n_features]}
+                for op in list(self._graphs)
+            ],
         }

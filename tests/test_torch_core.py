@@ -236,7 +236,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.core.item_memory, repro_torch.core.encoders\n"
         "import repro_torch.distributed.sharding, repro_torch.launch.mesh\n"
         "import repro_torch.serving.execution, repro_torch.checkpoint.manager\n"
-        "import repro_torch.core.prng\n"
+        "import repro_torch.core.prng, repro_torch.obs, repro_torch.obs.profiler\n"
+        "import repro_torch.serving.batcher, repro_torch.serving.pool\n"
+        "import repro_torch.serving.registry, repro_torch.serving.metrics\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
