@@ -224,7 +224,11 @@ def bundle_by_class(hvs: torch.Tensor, labels: torch.Tensor, n_classes: int) -> 
 
 
 def validate_labels(labels, n_classes: int) -> None:
-    """Raise on labels outside ``[0, n_classes)`` instead of dropping them."""
+    """Raise on labels outside ``[0, n_classes)`` instead of dropping them.
+
+    The message is the JAX package's word for word ("under jit" names the
+    drop that the kernels here make too), so the HTTP server's 400 body for
+    bad feedback labels is the same from either package."""
     arr = labels.cpu().numpy() if isinstance(labels, torch.Tensor) else np.asarray(labels)
     if arr.size == 0:
         return
@@ -232,9 +236,9 @@ def validate_labels(labels, n_classes: int) -> None:
     if bad.size:
         raise ValueError(
             f"labels must be in [0, {n_classes}); got out-of-range values "
-            f"{np.unique(bad)[:8].tolist()} — the bundling kernels drop such "
-            "labels from class_sums while n_seen still counts them, so they "
-            "are rejected at the API boundary"
+            f"{np.unique(bad)[:8].tolist()} — under jit such labels are "
+            "silently dropped from class_sums while n_seen still counts "
+            "them, so they are rejected at the API boundary"
         )
 
 

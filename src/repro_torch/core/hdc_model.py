@@ -197,8 +197,11 @@ class HDCModel(nn.Module):
         )
 
     def _fit_sums(self, images, labels) -> tuple[torch.Tensor, int]:
-        labels = self._tensor(labels).to(torch.int32)
+        if not isinstance(labels, torch.Tensor):
+            # checked on the host before the copy: no round trip through the card
+            labels = np.asarray(labels)
         encoding.validate_labels(labels, self.cfg.n_classes)
+        labels = self._tensor(labels).to(torch.int32)
         sums = self.encoder.fit_bundle(
             self.cfg, self.codebooks, self.quantize(images), labels, backend=self.cfg.backend
         )

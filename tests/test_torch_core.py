@@ -239,6 +239,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import repro_torch.core.prng, repro_torch.obs, repro_torch.obs.profiler\n"
         "import repro_torch.serving.batcher, repro_torch.serving.pool\n"
         "import repro_torch.serving.registry, repro_torch.serving.metrics\n"
+        "import repro_torch.transport, repro_torch.transport.protocol\n"
+        "import repro_torch.transport.client, repro_torch.transport.server\n"
+        "import repro_torch.transport.watcher, repro_torch.online\n"
+        "import repro_torch.online.buffer, repro_torch.online.learner\n"
+        "import repro_torch.obs.aggregator, repro_torch.launch.serve_http\n"
+        "import repro_torch.launch.serve_online, repro_torch.launch.obs_agg\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"
