@@ -94,7 +94,13 @@ Phases, each printed as one JSON object per line:
    encoder, on one device and on 4 shards, the eager step
    (``engine.execution.predict``) beside the engine's CUDA-graph replay
    (``engine.predict``): wall ms a batch, device time a batch by kernel, and
-   the device's idle share; a replay's device time also by CUDA events.
+   the device's idle share; a replay's device time also by CUDA events;
+14. lm_serve: ``repro_torch.launch.serve``'s ``Server`` on qwen3-0.6b at full
+   width (batch 4, prompt 32, gen 16, greedy, bf16), launches counted (none of
+   the eight kernels may launch), held against the port's float32 forward on
+   the CPU (teacher-forced) and, in float32, against the CPU's prefill; prefill
+   ms, decode ms a step, tokens/s, the one-time weight cast and peak memory;
+   then every arch's smoke config card against CPU (``lm_serve_phase``).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -1964,6 +1970,256 @@ def obs_agg_phase(torch, ops, obs_agg) -> dict:
     return launches
 
 
+# The lm_serve phase's bound on the card's bf16 logits against the float32
+# forward on the CPU at qwen3-0.6b's full width (28 layers), set before the
+# first run: logits there are O(1), and bf16 keeps 8 bits of mantissa.
+LM_BF16_BOUND = 0.5
+LM_F32_TOL = 1e-3  # the card's float32 prefill against the CPU's
+
+
+def _lm_batch(np, cfg, b: int, s: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {"tokens": rng.integers(2, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.input_mode == "embeddings":
+        out["embeddings"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    if cfg.n_ctx_tokens:
+        out["ctx"] = rng.standard_normal((b, cfg.n_ctx_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def _lm_teacher_forced(torch, transformer, cfg, params, batch: dict, s: int, dev) -> list:
+    """Prefill logits on the first s positions, then one decode step a
+    further position of `batch`, each fed the batch's own token: (B, V)
+    float32 logits on the CPU, one array a step."""
+    on = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    cut = lambda lo, hi: {k: (v if k == "ctx" else v[:, lo:hi]) for k, v in on.items()}  # noqa: E731
+    logits, state = transformer.prefill(cfg, params, cut(0, s))
+    out = [logits.float().cpu().numpy()]
+    for i in range(s, on["tokens"].shape[1]):
+        step = cut(i, i + 1)
+        extra = {k: v for k, v in step.items() if k == "embeddings"}
+        logits, state = transformer.decode_step(cfg, params, state, step["tokens"], **extra)
+        out.append(logits.float().cpu().numpy())
+    return out
+
+
+def _lm_device_ms(torch, fn, n: int) -> float:
+    """Device ms a call of fn: the CUDA kernels' and copies' self time in
+    one ``torch.profiler`` trace over n calls (after one untraced call),
+    divided by n.  CUDA activity alone: a decode step issues thousands of
+    launches, and tracing their host-side ops too (``device_ms``) takes
+    longer than the phase may."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / n
+
+
+def _lm_bf16_check(np, arch: str, card16: list, cpu16: list, cpu32: list) -> dict:
+    """The card's bf16 logits against the CPU's, by the criteria of
+    ``tests/test_torch_lm_bf16.py``: rtol 5e-2 / atol 1e-1 (2e-1 for the RG-LRU
+    arch); xLSTM's RMS distance to the float32 logits may be up to twice the
+    CPU's bf16 distance."""
+    c16, p16, p32 = (np.concatenate([x.ravel() for x in xs]) for xs in (card16, cpu16, cpu32))
+    rms = lambda a: float(np.sqrt(np.mean(np.square(a))))  # noqa: E731
+    out = {"max_abs_err": float(np.abs(c16 - p16).max()), "rms_card_vs_f32": rms(c16 - p32),
+           "rms_cpu_vs_f32": rms(p16 - p32)}
+    if arch == "xlstm-1.3b":
+        out["ok"] = out["rms_card_vs_f32"] <= 2 * out["rms_cpu_vs_f32"]
+        return out
+    atol = 2e-1 if arch == "recurrentgemma-2b" else 1e-1
+    out["ok"] = all(np.allclose(c, p, rtol=5e-2, atol=atol) for c, p in zip(card16, cpu16))
+    return out
+
+
+def lm_serve_phase(torch, ops, smi: str, dev, cfg) -> dict:
+    """The LM serving path (``repro_torch.launch.serve``) on the card, with no
+    CUDA graph and no ``torch.compile``, float32 matmuls without TF32:
+
+    * `cfg` (main: qwen3-0.6b at full width, 28 layers, d 1024, vocab
+      151,936) on `dev`, weights from
+      ``init_params(seed=0)``, ``Server.generate`` at the JAX launcher's
+      defaults (batch 4, prompt 32, gen 16, greedy, bf16 compute) with every
+      launch count read around it (the path launches none of the eight HDC
+      kernels); then, teacher-forced on the generated tokens, the card's
+      prefill and 15 decode steps against the port's float32 forward on the
+      CPU on the same weights (max abs error under LM_BF16_BOUND; each greedy
+      token equal to the CPU's argmax wherever the CPU's top-2 margin exceeds
+      twice the bound), and the card's float32 prefill against the CPU's
+      (LM_F32_TOL).  Timed: the one-time weight cast, the prefill, a decode
+      step (p50 of 15 by CUDA events) with the cast weights and with the
+      float32 masters (the per-step cast a server built on the masters would
+      pay), the decode step's device time (``_lm_device_ms``) and idle
+      share, the cast again with its blocks cached, generated tokens/s, and
+      peak memory;
+    * every arch's smoke config: prefill + 4 teacher-forced decode steps on the
+      card against the CPU, in float32 (rtol/atol 1e-4, xLSTM atol 1e-3) and in
+      bf16 (``_lm_bf16_check``), and ``serve_queue`` at temperature 0.7 (2
+      slots, examples/serve_lm.py's mix) for qwen3-0.6b and recurrentgemma-2b
+      in float32, its tokens equal to the CPU's.
+    The launcher's one-card mesh is current throughout, so the MoE archs take
+    the local dispatch, as ``serve.main`` makes them."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.distributed.sharding import get_current_mesh, set_current_mesh
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import mesh_for
+    from repro_torch.models import params as pmod, transformer
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matmuls; the LM path compares float32 exactly")
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    f32 = lambda c: dataclasses.replace(c, compute_dtype="float32")  # noqa: E731
+    to_cpu = lambda t: {k: to_cpu(v) if isinstance(v, dict) else v.cpu() for k, v in t.items()}  # noqa: E731
+    previous = get_current_mesh()
+    set_current_mesh(mesh_for(devices=[dev]))
+    try:
+        # --- full width -----------------------------------------------------
+        b, plen, gen = 4, 32, 16
+        t0 = time.perf_counter()
+        params = pmod.init_params(cfg, 0, dev)
+        sync(torch, dev)
+        init_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server = serve.Server(cfg, params, b, serve.ServerConfig())
+        sync(torch, dev)
+        cast_ms = (time.perf_counter() - t0) * 1e3
+        prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (b, plen), dtype=np.int32)
+        t0 = time.perf_counter()
+        tokens, launches = path_launches(ops, "lm_serve", (), lambda: server.generate(prompts, gen),
+                                         absent=tuple(KERNELS))
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = server.generate(prompts, gen)
+        gen_s = time.perf_counter() - t0
+        if not np.array_equal(again, tokens):
+            raise AssertionError("two greedy generate calls on the card differ")
+        seq = np.concatenate([prompts, tokens[:, :-1]], axis=1)
+        card = _lm_teacher_forced(torch, transformer, cfg, server.params, {"tokens": seq}, plen, dev)
+        card_tokens = np.stack([c.argmax(-1) for c in card], axis=1)
+        if not np.array_equal(card_tokens, tokens):
+            raise AssertionError("the teacher-forced card logits' argmax differs from generate's tokens")
+
+        def events_ms(fn, n):
+            times = []
+            for _ in range(n):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                times.append((start, end))
+            torch.cuda.synchronize()
+            return [s_.elapsed_time(e_) for s_, e_ in times]
+
+        prompt_t = torch.from_numpy(prompts).to(dev)
+        prefill_ms = float(np.median(events_ms(
+            lambda: transformer.prefill(cfg, server.params, {"tokens": prompt_t}), 5)))
+
+        def decode_p50(p):
+            """p50 of 15 decode steps by CUDA events, from a fresh prefill,
+            and the step itself (its state advancing on each call)."""
+            _, state = transformer.prefill(cfg, p, {"tokens": prompt_t})
+            tok = torch.from_numpy(tokens[:, :1]).to(dev)
+            box = [state]
+
+            def step():
+                box[0] = transformer.decode_step(cfg, p, box[0], tok)[1]
+
+            step()
+            return float(np.median(events_ms(step, 15))), step
+
+        decode_ms, step = decode_p50(server.params)
+        decode_device_ms = _lm_device_ms(torch, step, 3)
+        decode_ms_masters, _ = decode_p50(params)
+        # the cast again, its blocks cached: what a server that casts the
+        # masters at every step pays for it, in device time
+        cast_warm_ms = float(np.median(events_ms(lambda: transformer.cast_for_compute(cfg, params), 3)))
+        peak = torch.cuda.max_memory_allocated()
+
+        # the float32 reference on the CPU, on the same weights
+        t0 = time.perf_counter()
+        params_cpu = to_cpu(params)
+        ref = transformer.forward_logits(f32(cfg), params_cpu, {"tokens": torch.from_numpy(seq)}).numpy()
+        ref_steps = [ref[:, plen - 1 + i] for i in range(gen)]
+        cpu_s = time.perf_counter() - t0
+        err = max(float(np.abs(c - r).max()) for c, r in zip(card, ref_steps))
+        top2 = np.sort(np.stack(ref_steps, 1), axis=-1)[..., -2:]
+        margin = top2[..., 1] - top2[..., 0]
+        decided = margin > 2 * LM_BF16_BOUND
+        agree = np.stack([r.argmax(-1) for r in ref_steps], 1) == tokens
+        card32 = transformer.prefill(f32(cfg), params, {"tokens": prompt_t})[0].cpu().numpy()
+        cpu32 = transformer.prefill(f32(cfg), params_cpu, {"tokens": torch.from_numpy(prompts)})[0].numpy()
+        f32_err = float(np.abs(card32 - cpu32).max())
+        full = {
+            "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab_size, "n_params": cfg.n_params(), "batch": b, "prompt": plen,
+            "gen": gen, "compute_dtype": cfg.compute_dtype, "init_s": init_s, "cast_ms": cast_ms,
+            "first_generate_s": first_s, "generate_s": gen_s, "tokens_per_s": b * gen / gen_s,
+            "cast_ms_warm": cast_warm_ms, "prefill_ms": prefill_ms,
+            "decode_ms_p50": decode_ms, "decode_device_ms": decode_device_ms,
+            "decode_idle_share": 1.0 - decode_device_ms / decode_ms,
+            "decode_ms_p50_casting_each_step": decode_ms_masters,
+            "max_memory_allocated": peak, "cpu_reference_s": cpu_s,
+            "max_abs_err_bf16_vs_cpu_f32": err, "bound": LM_BF16_BOUND,
+            "greedy_tokens_decided": int(decided.sum()), "greedy_tokens_agree": int(agree.sum()),
+            "greedy_decided_disagree": int((decided & ~agree).sum()), "tokens": int(agree.size),
+            "max_abs_err_f32_prefill": f32_err, "f32_tol": LM_F32_TOL,
+            "launches": launches, "nvidia_smi": smi,
+        }
+        del server, params, params_cpu
+        torch.cuda.empty_cache()
+
+        # --- every arch at smoke size -----------------------------------------
+        smoke = {}
+        for arch in ARCHS:
+            scfg = get_smoke_config(arch)
+            p_cpu = pmod.init_params(scfg, 0, cpu)
+            p_dev = pmod.init_params(scfg, 0, dev)
+            batch = _lm_batch(np, scfg, 2, 16, 1)
+            runs = {}
+            for dt in ("float32", "bfloat16"):
+                c = dataclasses.replace(scfg, compute_dtype=dt)
+                runs[dt] = (_lm_teacher_forced(torch, transformer, c, p_dev, batch, 12, dev),
+                            _lm_teacher_forced(torch, transformer, c, p_cpu, batch, 12, cpu))
+            tol = 1e-3 if arch == "xlstm-1.3b" else 1e-4
+            f32_ok = all(np.allclose(c, p, rtol=1e-4, atol=tol) for c, p in zip(*runs["float32"]))
+            entry = {"f32_max_abs_err": max(float(np.abs(c - p).max()) for c, p in zip(*runs["float32"])),
+                     "f32_ok": f32_ok,
+                     "bf16": _lm_bf16_check(np, arch, *runs["bfloat16"], runs["float32"][1])}
+            if arch in ("qwen3-0.6b", "recurrentgemma-2b"):
+                rng = np.random.default_rng(0)
+                requests = [rng.integers(2, scfg.vocab_size, size=n, dtype=np.int32) for n in (8, 12, 8, 10)]
+                got = {}
+                for where, p in (("card", p_dev), ("cpu", p_cpu)):
+                    srv = serve.Server(f32(scfg), p, 2, serve.ServerConfig(temperature=0.7))
+                    got[where] = srv.serve_queue(requests, gen_len=8)
+                entry["serve_queue_equal"] = got["card"] == got["cpu"]
+            smoke[arch] = entry
+    finally:
+        set_current_mesh(previous)
+    full["seconds"] = time.perf_counter() - t_phase
+    emit("lm_serve", full_width=full, smoke=smoke)
+    bad = [a for a, e in smoke.items()
+           if not (e["f32_ok"] and e["bf16"]["ok"] and e.get("serve_queue_equal", True))]
+    if err >= LM_BF16_BOUND or full["greedy_decided_disagree"] or f32_err >= LM_F32_TOL or bad:
+        raise AssertionError(f"the lm_serve phase failed its checks: bf16 err {err}, "
+                             f"decided tokens that disagree {full['greedy_decided_disagree']}, "
+                             f"f32 prefill err {f32_err}, smoke archs {bad}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2069,6 +2325,10 @@ def main() -> int:
     profile_phase(torch, sharded_engines["uhd", 8192], probe, "uhd, 4 shards")
     profile_phase(torch, result_base.engines[1], probe, "baseline")
     profile_phase(torch, sharded_engines["baseline", 8192], probe, "baseline, 4 shards")
+
+    from repro_torch.configs import get_config
+
+    by_path["lm_serve"] = lm_serve_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
 
     lost = lost_phase(torch, ops, ref, sobol)
     line = []

@@ -22,11 +22,17 @@ default of current JAX):
 
 The other form (``jax_threefry_partitionable`` False) draws other bits;
 the tests assert the flag before comparing.
+
+The LM server's sampling keys come from here too: ``fold_in(key, data)``
+hashes the counter words ``(0, data)`` (data as uint32) into a new key,
+and ``categorical`` is JAX's Gumbel-argmax with the "low" sampler
+(``jax.random.categorical``'s default).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -85,3 +91,24 @@ def uniform(
     lo, hi = np.float32(minval), np.float32(maxval)
     scaled = floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)
     return np.maximum(lo, scaled.astype(np.float32))
+
+
+def fold_in(key: np.ndarray, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` as a (2,) uint32 array."""
+    b0, b1 = threefry2x32(key, np.zeros(1, np.uint32), np.asarray([int(data) & 0xFFFFFFFF], np.uint32))
+    return np.asarray([b0[0], b1[0]], np.uint32)
+
+
+def gumbel(key: np.ndarray, shape: tuple[int, ...]) -> np.ndarray:
+    """``jax.random.gumbel(key, shape)`` in float32, "low" mode:
+    ``-log(-log(u))`` of a uniform in [tiny, 1)."""
+    u = uniform(key, shape, minval=float(np.finfo(np.float32).tiny), maxval=1.0)
+    return -np.log(-np.log(u))
+
+
+def categorical(key: np.ndarray, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    argmax of logits plus Gumbel noise of the logits' shape.  The noise is
+    drawn on the host and added on the logits' device, in float32."""
+    noise = torch.from_numpy(gumbel(key, tuple(logits.shape))).to(logits.device)
+    return torch.argmax(noise + logits.float(), dim=-1)

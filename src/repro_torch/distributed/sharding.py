@@ -2,7 +2,9 @@
 
 The torch counterpart of the HDC part of ``repro.distributed.sharding``
 (``ShardingRules``, ``model_mesh``, ``model_axis_for``, the current
-mesh); the parameter rules of the LM scaffolding are not ported.
+mesh) and the LM path's ``constrain`` and ``constrain_batch`` (the
+identity on one card); the parameter rules of the LM scaffolding are
+not ported.
 
 The JAX package runs its sharded paths under one controller: one
 process drives every device of a ``jax.sharding.Mesh`` through
@@ -153,3 +155,17 @@ def model_axis_for(mesh: Mesh, dim: int, *, rules: ShardingRules | None = None) 
     if axis and dim % mesh.shape[axis] == 0 and dim >= mesh.shape[axis]:
         return axis
     return None
+
+
+def constrain(x: torch.Tensor, spec=None) -> torch.Tensor:
+    """The identity: the LM path's layout hint (``repro``'s
+    ``with_sharding_constraint`` under the current mesh).  Every mesh the
+    port serves an LM on lives on one card, so there is no layout to
+    constrain; the call sites keep the JAX package's places for a
+    multi-card layout to come."""
+    return x
+
+
+def constrain_batch(x: torch.Tensor, rules: ShardingRules | None = None) -> torch.Tensor:
+    """The identity, as :func:`constrain` (dim 0 over the batch axes)."""
+    return x
