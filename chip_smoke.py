@@ -100,7 +100,15 @@ Phases, each printed as one JSON object per line:
    the eight kernels may launch), held against the port's float32 forward on
    the CPU (teacher-forced) and, in float32, against the CPU's prefill; prefill
    ms, decode ms a step, tokens/s, the one-time weight cast and peak memory;
-   then every arch's smoke config card against CPU (``lm_serve_phase``).
+   then every arch's smoke config card against CPU (``lm_serve_phase``);
+15. lm_train: ``repro_torch.launch.train`` on qwen3-0.6b at full width (batch 8,
+   seq 256, remat, 8 loss chunks, float32 masters, bf16 compute) for 30 steps,
+   launches counted (none of the eight kernels may launch), the loss falling;
+   every smoke arch's train step card against CPU, the full-width loss and
+   gradient norm card against CPU; step ms, tokens/s, device ms and idle
+   share, mfu, peak memory; a 7.15 GB non-blocking checkpoint of the trained
+   state, restored bit for bit; a SIGTERM'd smoke run resumed from its last
+   completed step (``lm_train_phase``).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -1975,6 +1983,13 @@ def obs_agg_phase(torch, ops, obs_agg) -> dict:
 # first run: logits there are O(1), and bf16 keeps 8 bits of mantissa.
 LM_BF16_BOUND = 0.5
 LM_F32_TOL = 1e-3  # the card's float32 prefill against the CPU's
+# The full-width train answers (lm_train_phase), the card against the CPU's
+# float32: (loss relative, grad_norm relative) in float32 compute, and (loss
+# absolute, grad_norm relative) in bf16.  Measured on an H100 (seed 0, one
+# 2 x 256 batch): 7.8e-8 and 1.3e-7 in float32; 2.8e-4 and 0.15% in bf16, so
+# the bf16 bounds keep a margin of about 7x.
+LM_TRAIN_F32_TOL = (1e-4, 1e-3)
+LM_TRAIN_BF16_TOL = (0.002, 0.01)
 
 
 def _lm_batch(np, cfg, b: int, s: int, seed: int) -> dict:
@@ -2220,6 +2235,309 @@ def lm_serve_phase(torch, ops, smi: str, dev, cfg) -> dict:
     return launches
 
 
+
+LM_TRAIN_STEPS = 30
+H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, 700 W (the data sheet)
+
+
+def _lm_train_flops(cfg, b: int, s: int) -> tuple[float, float]:
+    """(model FLOPs, FLOPs with the remat recompute) of one train step:
+    6 N T for the weights (the tied embedding counted once, as the
+    unembedding's product) plus the attention's two (S, S) products over
+    the full square the port computes (2 x 2 B S^2 H hd a layer forward,
+    the backward twice that); remat adds one forward of the blocks and of
+    the loss chunks, so 4/3 of the model FLOPs."""
+    tokens = b * s
+    attn_fwd = cfg.n_layers * 4 * b * s * s * cfg.n_heads * cfg.head_dim
+    fwd = 2 * cfg.n_params() * tokens + attn_fwd
+    return 3 * fwd, 4 * fwd
+
+
+def _train_cmd(args: list[str]) -> list[str]:
+    return [sys.executable, "-m", "repro_torch.launch.train", "--arch", "qwen3-0.6b", "--smoke",
+            "--device", "cuda", "--log-every", "1", "--ckpt-every", "10", *args]
+
+
+def _train_losses(out: str) -> dict[int, float]:
+    import re
+
+    pat = re.compile(r"^step\s+(\d+) loss (\S+) ")
+    return {int(m[1]): float(m[2]) for m in (pat.match(line) for line in out.splitlines()) if m}
+
+
+def lm_resume_phase(torch, np, dev, steps: int = 40) -> dict:
+    """``launch.train --smoke --device cuda --steps 40 --ckpt-every 10`` in a
+    subprocess, sent SIGTERM once it logs step 15, then resumed to the end,
+    beside an uninterrupted run: the preempted run exits 0 with a checkpoint
+    at its last completed step (the step after the last it logged), the
+    resumed run starts there, its batches from that step equal (bit for
+    bit) the ones an uninterrupted run draws, and its losses lie within 1e-3
+    of the uninterrupted run's (the embedding's backward on the card
+    accumulates with atomics, so not bit for bit)."""
+    import os
+    import signal
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    d_pre, d_straight = fresh_dir("lm_resume_preempted"), fresh_dir("lm_resume_straight")
+    t0 = time.perf_counter()
+    straight = subprocess.Popen(_train_cmd(["--steps", str(steps), "--ckpt-dir", str(d_straight)]),
+                                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    first = subprocess.Popen(_train_cmd(["--steps", str(steps), "--ckpt-dir", str(d_pre)]),
+                             env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs = [straight, first]
+    try:
+        lines = []
+        for line in first.stdout:
+            lines.append(line)
+            logged = _train_losses(line)
+            if logged and max(logged) >= 15:
+                first.send_signal(signal.SIGTERM)
+                break
+        out, err = first.communicate(timeout=300)
+        logged = _train_losses("".join(lines) + out)
+        saved = CheckpointManager(d_pre).latest_step()
+        second = subprocess.Popen(_train_cmd(["--steps", str(steps), "--ckpt-dir", str(d_pre)]),
+                                  env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        procs.append(second)
+        out2, err2 = second.communicate(timeout=300)
+        out3, err3 = straight.communicate(timeout=300)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for name, p, e in (("preempted", first, err), ("resumed", second, err2), ("straight", straight, err3)):
+        if p.returncode != 0:
+            raise AssertionError(f"the {name} training run exited {p.returncode}: {e[-3000:]}")
+    last = max(logged)
+    resumed, ref = _train_losses(out2), _train_losses(out3)
+    start = min(resumed) if resumed else None
+    cfg = get_smoke_config("qwen3-0.6b")
+    pipe = TokenPipeline(cfg.vocab_size, 256, 8)
+    batches_equal = all(
+        torch.equal(pipe.batch_at(k, dev)["tokens"].cpu(),
+                    TokenPipeline(cfg.vocab_size, 256, 8).host_batch(k)["tokens"])
+        for k in range(last + 1, steps))
+    diff = max(abs(resumed[k] - ref[k]) for k in resumed)
+    out = {"steps": steps, "last_logged": last, "checkpoint_step": saved, "resumed_from": start,
+           "resume_line": f"resuming from step {saved}" in out2, "batches_equal": batches_equal,
+           "max_loss_diff_vs_uninterrupted": diff, "seconds": time.perf_counter() - t0}
+    emit("lm_train_resume", **out)
+    if not (last < steps - 1 and saved == last + 1 and start == saved and out["resume_line"]
+            and batches_equal and diff <= 1e-3 and max(resumed) == steps - 1):
+        raise AssertionError(f"preemption and resume on the card failed: {out}")
+    return out
+
+
+def lm_train_phase(torch, ops, smi: str, dev, cfg) -> dict:
+    """The LM training path (``repro_torch.launch.train``) on the card, eager
+    PyTorch, float32 matmuls without TF32:
+
+    * parity at smoke width: for each of the ten archs' smoke configs in
+      float32 compute, one ``make_train_step`` on the card and one on the
+      CPU from the same weights and batch: loss within 1e-5 (xLSTM 1e-4),
+      ``grad_norm`` within 1e-4 relative and finite, params after within
+      atol 2e-3 / rtol 1e-3; then a bf16 step on the card with a finite
+      loss and ``grad_norm``; gemma3's also with 8-wide attention blocks
+      (the online-softmax path, with fully masked blocks);
+    * answers at full width: `cfg` (qwen3-0.6b, 28 layers, d 1024, vocab
+      151,936, remat, 8 loss chunks), ``init_params(seed=0)``, one 2 x 256
+      ``TokenPipeline`` batch: the card's float32 loss and gradient norm
+      within LM_TRAIN_F32_TOL of the CPU's float32, its bf16 ones within
+      LM_TRAIN_BF16_TOL;
+    * the trainer: ``train.main`` at the JAX launcher's defaults (batch 8,
+      seq 256, lr 3e-4, warmup 20) for 30 steps, with launches counted
+      (none of the eight HDC kernels may launch): every loss finite, the
+      mean of the last 5 below the first 5; step ms p50/p90 by CUDA events
+      over steps 5-29, tokens/s, the device's busy ms a step and idle share
+      (``torch.profiler``, CUDA activity, steps 26-28), model FLOPs and mfu
+      against 989 TFLOP/s, peak memory and the loss curve;
+    * the trained state (params and AdamW moments, 7.15 GB) saved with
+      ``save(blocking=False)``: the host-blocking ms, the write seconds, the
+      restore seconds, every leaf restored bit for bit, then deleted;
+    * preemption and resume at smoke width (``lm_resume_phase``)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import ARCHS, get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import params as pmod
+    from repro_torch.optim import OptimizerConfig, global_norm, init_opt_state
+    from repro_torch.training.step import loss_and_grads, make_train_step
+    from repro_torch.tree import tree_leaves, tree_map
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on for float32 matmuls; the LM path compares float32 exactly")
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    f32 = lambda c: dataclasses.replace(c, compute_dtype="float32")  # noqa: E731
+    to = lambda tree, d: tree_map(lambda t: t.to(d), tree)  # noqa: E731
+
+    # --- parity at smoke width ------------------------------------------------
+    parity, bad = {}, []
+    ocfg = OptimizerConfig(warmup_steps=0, total_steps=10, schedule="constant")
+    cases = [(a, {}) for a in ARCHS] + [("gemma3-12b", dict(attn_block_threshold=16, attn_block_q=8,
+                                                           attn_block_kv=8))]
+    for arch, over in cases:
+        scfg = dataclasses.replace(get_smoke_config(arch), **over)
+        batch = {k: torch.from_numpy(v) for k, v in _lm_batch(np, scfg, 2, 16, 1).items()}
+        runs = {}
+        for where, d in (("card", dev), ("cpu", cpu)):
+            p = pmod.init_params(scfg, 0, cpu)
+            p = to(p, d)
+            p, _, m = make_train_step(f32(scfg), ocfg)(p, init_opt_state(p), to(batch, d), 0)
+            runs[where] = (to(p, cpu), {k: v.item() for k, v in m.items()})
+        p16 = to(pmod.init_params(scfg, 0, cpu), dev)
+        _, _, m16 = make_train_step(scfg, ocfg)(p16, init_opt_state(p16), to(batch, dev), 0)
+        (pc, mc), (pp, mp) = runs["card"], runs["cpu"]
+        tol = 1e-4 if arch == "xlstm-1.3b" else 1e-5
+        err = max(float((a - b).abs().max()) for a, b in zip(tree_leaves(pc), tree_leaves(pp)))
+        close = all(torch.allclose(a, b, atol=2e-3, rtol=1e-3) for a, b in zip(tree_leaves(pc), tree_leaves(pp)))
+        name = arch + (" blocked" if over else "")
+        parity[name] = {"loss_err": abs(mc["loss"] - mp["loss"]),
+                        "grad_norm_rel_err": abs(mc["grad_norm"] - mp["grad_norm"]) / mp["grad_norm"],
+                        "params_max_abs_err": err, "bf16_loss": m16["loss"].item(),
+                        "bf16_grad_norm": m16["grad_norm"].item()}
+        e = parity[name]
+        if not (e["loss_err"] <= tol and e["grad_norm_rel_err"] <= 1e-4 and close
+                and np.isfinite([mc["grad_norm"], e["bf16_loss"], e["bf16_grad_norm"]]).all()):
+            bad.append(name)
+    emit("lm_train_parity", archs=parity, failed=bad)
+    if bad:
+        raise AssertionError(f"lm_train parity failed for {bad}")
+
+    # --- answers at full width ------------------------------------------------
+    t0 = time.perf_counter()
+    params_cpu = pmod.init_params(cfg, 0, cpu)
+    batch = TokenPipeline(cfg.vocab_size, 256, 2).host_batch(0)
+    init_s = time.perf_counter() - t0
+
+    def answer(c, p, b):
+        loss, _, grads = loss_and_grads(c, p, b)
+        return loss.item(), global_norm(grads).item()
+
+    t0 = time.perf_counter()
+    ref_loss, ref_gn = answer(f32(cfg), params_cpu, batch)
+    cpu_s = time.perf_counter() - t0
+    params_dev = to(params_cpu, dev)
+    card32 = answer(f32(cfg), params_dev, to(batch, dev))
+    card16 = answer(cfg, params_dev, to(batch, dev))
+    del params_dev
+    answers = {"batch": [2, 256], "cpu_f32": [ref_loss, ref_gn], "card_f32": list(card32),
+               "card_bf16": list(card16), "f32_loss_rel_err": abs(card32[0] - ref_loss) / ref_loss,
+               "f32_grad_norm_rel_err": abs(card32[1] - ref_gn) / ref_gn,
+               "bf16_loss_abs_err": abs(card16[0] - ref_loss),
+               "bf16_grad_norm_rel_err": abs(card16[1] - ref_gn) / ref_gn,
+               "tol_f32": LM_TRAIN_F32_TOL, "tol_bf16": LM_TRAIN_BF16_TOL,
+               "init_s": init_s, "cpu_reference_s": cpu_s}
+    emit("lm_train_answers", **answers)
+    if not (answers["f32_loss_rel_err"] <= LM_TRAIN_F32_TOL[0]
+            and answers["f32_grad_norm_rel_err"] <= LM_TRAIN_F32_TOL[1]
+            and answers["bf16_loss_abs_err"] <= LM_TRAIN_BF16_TOL[0]
+            and answers["bf16_grad_norm_rel_err"] <= LM_TRAIN_BF16_TOL[1]):
+        raise AssertionError(f"the full-width training answers are off: {answers}")
+    del params_cpu
+
+    # --- the trainer at full width ------------------------------------------------
+    b, s = 8, 256
+    events, losses, state = [], [], {}
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def on_step(step, params, opt_state, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+        losses.append(metrics["loss"].item())
+        if step == 25:
+            torch.cuda.synchronize()
+            prof.start()
+        elif step == 28:
+            torch.cuda.synchronize()
+            prof.stop()
+        state.update(params=params, opt=opt_state)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", cfg.name, "--steps", str(LM_TRAIN_STEPS), "--batch", str(b), "--seq", str(s)]
+    t0 = time.perf_counter()
+    rc, launches = path_launches(ops, "lm_train", (), lambda: train.main(argv, on_step=on_step),
+                                 absent=tuple(KERNELS))
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    step_ms = [events[i - 1].elapsed_time(events[i]) for i in range(5, LM_TRAIN_STEPS)]
+    window_ms = events[25].elapsed_time(events[28]) / 3
+    on_card = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in on_card) / 1e3 / 3
+    top = sorted(on_card, key=lambda e: -e.self_device_time_total)[:15]
+    model_flops, remat_flops = _lm_train_flops(cfg, b, s)
+    p50, p90 = float(np.percentile(step_ms, 50)), float(np.percentile(step_ms, 90))
+    trainer = {
+        "arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+        "n_params": cfg.n_params(), "batch": b, "seq": s, "steps": LM_TRAIN_STEPS, "rc": rc,
+        "remat": cfg.remat, "remat_policy": cfg.remat_policy, "loss_seq_chunks": cfg.loss_seq_chunks,
+        "seconds": train_s, "step_ms_p50": p50, "step_ms_p90": p90, "tokens_per_s": b * s / (p50 / 1e3),
+        "device_ms_per_step": device_ms, "wall_ms_profiled_steps": window_ms,
+        "idle_share": 1.0 - device_ms / window_ms,
+        "device_launches_per_step": sum(e.count for e in on_card) / 3,
+        "device_top": [{"name": e.key[:90], "ms_per_step": e.self_device_time_total / 1e3 / 3,
+                        "calls_per_step": e.count / 3} for e in top],
+        "model_flops": model_flops,
+        "model_flops_with_remat": remat_flops, "mfu": model_flops / (p50 / 1e3) / H100_BF16_FLOPS,
+        "mfu_with_remat": remat_flops / (p50 / 1e3) / H100_BF16_FLOPS,
+        "max_memory_allocated": peak, "losses": losses, "launches": launches, "nvidia_smi": smi,
+    }
+    emit("lm_train", **trainer)
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if rc != 0 or not np.isfinite(losses).all() or not last5 < first5:
+        raise AssertionError(f"the full-width trainer failed: rc {rc}, first {first5}, last {last5}")
+
+    # --- the trained state, checkpointed --------------------------------------
+    ckpt_dir = fresh_dir("lm_train_ckpt")
+    tree = {"params": state["params"], "opt": state["opt"]}
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+    free = shutil.disk_usage(ckpt_dir).free
+    emit("lm_train_ckpt_disk", state_bytes=n_bytes, free_bytes=free)
+    try:
+        mgr = CheckpointManager(ckpt_dir, keep_n=1)
+        t0 = time.perf_counter()
+        mgr.save(LM_TRAIN_STEPS, tree, blocking=False)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        mgr.wait()
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored = mgr.restore(LM_TRAIN_STEPS, tree)
+        restore_s = time.perf_counter() - t0
+        exact = all(np.array_equal(np.asarray(r), t.cpu().numpy())
+                    for r, t in zip(tree_leaves(restored), tree_leaves(tree)))
+        del restored
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt = {"state_bytes": n_bytes, "free_bytes_before": free, "host_blocking_ms": host_ms,
+            "write_s": write_s, "restore_s": restore_s, "bit_exact": exact}
+    emit("lm_train_ckpt", **ckpt)
+    if not exact:
+        raise AssertionError("the full-width checkpoint did not restore bit for bit")
+    del tree, state
+    torch.cuda.empty_cache()
+
+    resume = lm_resume_phase(torch, np, dev)
+    out = {"seconds": time.perf_counter() - t_phase, "trainer": {k: trainer[k] for k in (
+        "step_ms_p50", "step_ms_p90", "tokens_per_s", "device_ms_per_step", "idle_share", "mfu",
+        "max_memory_allocated")}, "checkpoint": ckpt, "resume_seconds": resume["seconds"]}
+    emit("lm_train_phase", **out)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2329,6 +2647,7 @@ def main() -> int:
     from repro_torch.configs import get_config
 
     by_path["lm_serve"] = lm_serve_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
+    by_path["lm_train"] = lm_train_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
 
     lost = lost_phase(torch, ops, ref, sobol)
     line = []

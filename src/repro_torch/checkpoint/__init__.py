@@ -1,1 +1,1 @@
-from repro_torch.checkpoint.manager import CheckpointManager  # noqa: F401
+from repro_torch.checkpoint.manager import CheckpointManager, install_sigterm_handler  # noqa: F401

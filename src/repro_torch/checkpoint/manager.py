@@ -19,19 +19,34 @@ written by host 0, gives such a leaf ``file`` = the stem, ``shards`` and
 ``axis``); ``finalize_shards`` publishes once every file is there, and
 ``restore`` concatenates the slices along ``axis``.  Either package
 restores the other's sharded checkpoints too.
+
+``save(..., blocking=False)`` copies the tree to host memory before it
+returns (a clone on the CPU, a device-to-host copy from a card: the
+training step updates its tensors in place, so a view would let the next
+step into the checkpoint), then writes on a daemon thread; one save is in
+flight at a time, and a write error surfaces at the next ``wait()``.
+bfloat16 leaves are stored as JAX stores them: the bits as ``uint16``,
+``"dtype": "bfloat16"`` in the manifest.  ``install_sigterm_handler``
+flushes a final checkpoint on SIGTERM and exits 0 (the preemption
+contract), holding the signal while a step updates state in place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import shutil
+import signal
+import threading
 import time
 from pathlib import Path
-from typing import Any
+from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from repro_torch.tree import tree_unflatten
 
 Tree = Any
 
@@ -62,10 +77,25 @@ def _shard_files(meta: dict) -> list[str]:
     return [f"{meta['file']}.s{i:03d}.npy" for i in range(meta["shards"])]
 
 
-def _host(leaf) -> np.ndarray:
+def _host(leaf) -> tuple[np.ndarray, str]:
+    """A host copy of `leaf` that no later in-place update reaches, and its
+    logical dtype; a bfloat16 tensor becomes its bits as uint16."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach()
+        t = t.clone() if t.device.type == "cpu" else t.cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+    else:
+        arr = np.array(leaf)
+    return arr, str(arr.dtype)
+
+
+def _load(path: Path, dtype: str):
+    arr = np.load(path)
+    if dtype == "bfloat16":  # numpy has no bfloat16: the bits go to torch
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return arr
 
 
 class CheckpointManager:
@@ -73,23 +103,53 @@ class CheckpointManager:
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self.keep_n = keep_n
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
 
     # -- write -----------------------------------------------------------
 
-    def save(self, step: int, tree: Tree, *, extra: dict | None = None) -> None:
-        """Checkpoint `tree` at `step` atomically, then prune old steps."""
+    def save(self, step: int, tree: Tree, *, blocking: bool = True,
+             extra: dict | None = None) -> None:
+        """Checkpoint `tree` at `step` atomically, then prune old steps.
+        The tree is copied to host memory before this returns; with
+        ``blocking=False`` the files are written on a background thread."""
+        self.wait()  # one in-flight save at a time
+        host = [(key, *_host(leaf)) for key, leaf in _flatten(tree)]
+
+        def write():
+            try:
+                self._write(step, host, extra or {})
+            except BaseException as e:  # surfaced on the next wait()
+                self._error = e
+
+        if blocking:
+            write()
+            self.wait()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+
+    def wait(self) -> None:
+        """Wait for the save in flight; raise its error, if it had one."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _write(self, step: int, host: list[tuple[str, np.ndarray, str]], extra: dict) -> None:
         final = self.root / f"step_{step:09d}"
         tmp = self.root / f"step_{step:09d}.tmp"
         if tmp.exists():
             shutil.rmtree(tmp)
         tmp.mkdir(parents=True)
-        manifest = {"step": step, "leaves": [], "extra": extra or {}, "time": time.time()}
-        for i, (key, leaf) in enumerate(_flatten(tree)):
-            arr = _host(leaf)
+        manifest = {"step": step, "leaves": [], "extra": extra, "time": time.time()}
+        for i, (key, arr, dtype) in enumerate(host):
             fname = f"leaf_{i:06d}.npy"
             np.save(tmp / fname, arr)
             manifest["leaves"].append(
-                {"key": key, "file": fname, "shape": list(arr.shape), "dtype": str(arr.dtype)}
+                {"key": key, "file": fname, "shape": list(arr.shape), "dtype": dtype}
             )
         with open(tmp / "manifest.json", "w") as f:
             json.dump(manifest, f)
@@ -133,11 +193,11 @@ class CheckpointManager:
             sharded = key in shard_axes
             if not sharded and process_index != 0:
                 continue  # a replicated leaf: host 0 writes it
-            arr = _host(leaf)
+            arr, dtype = _host(leaf)
             name = f"leaf_{i:06d}.s{process_index:03d}.npy" if sharded else f"leaf_{i:06d}.npy"
             np.save(tmp / name, arr)
             meta = {"key": key, "file": f"leaf_{i:06d}.npy", "shape": list(arr.shape),
-                    "dtype": str(arr.dtype)}
+                    "dtype": dtype}
             if sharded:
                 meta.update(file=f"leaf_{i:06d}", shards=process_count, axis=int(shard_axes[key]))
             manifest["leaves"].append(meta)
@@ -232,24 +292,26 @@ class CheckpointManager:
 
     def restore(self, step: int, like: Tree) -> Tree:
         """Numpy leaves of `step` in the structure of `like`, whose leaves
-        are shapes (tuples) or arrays; shapes are checked."""
+        are shapes (tuples), arrays or tensors; shapes are checked.  A
+        bfloat16 leaf comes back as a ``torch.bfloat16`` tensor."""
         d = self.root / f"step_{step:09d}"
         by_key = {m["key"]: m for m in self._manifest(step)["leaves"]}
-        pairs = []
+        leaves = []
         for key, leaf in _flatten(like):
             meta = by_key.get(key)
             if meta is None:
                 raise KeyError(f"checkpoint {step} missing leaf {key!r}")
             if meta.get("shards"):  # stitch the per-host slices
-                arr = np.concatenate([np.load(d / f) for f in _shard_files(meta)],
-                                     axis=meta["axis"])
+                parts = [_load(d / f, meta["dtype"]) for f in _shard_files(meta)]
+                cat = torch.cat if isinstance(parts[0], torch.Tensor) else np.concatenate
+                arr = cat(parts, meta["axis"])
             else:
-                arr = np.load(d / meta["file"])
+                arr = _load(d / meta["file"], meta["dtype"])
             want = tuple(leaf) if isinstance(leaf, tuple) else tuple(np.shape(leaf))
             if tuple(arr.shape) != want:
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != {want}")
-            pairs.append((key, arr))
-        return _unflatten(pairs)
+            leaves.append(arr)
+        return tree_unflatten(like, leaves)
 
     def extra(self, step: int) -> dict:
         return self._manifest(step).get("extra", {})
@@ -257,3 +319,47 @@ class CheckpointManager:
     def leaf_meta(self, step: int) -> dict[str, dict]:
         """Manifest metadata per flat leaf key (shape, dtype)."""
         return {m["key"]: m for m in self._manifest(step)["leaves"]}
+
+
+class SigtermHandler:
+    """SIGTERM -> ``save_fn()`` then ``SystemExit(0)``.  A SIGTERM that
+    arrives inside :meth:`hold` is served when the block ends (not if it
+    raises): the state the block updates in place is saved whole."""
+
+    def __init__(self, save_fn: Callable[[], None]):
+        self.save_fn = save_fn
+        self._held = False
+        self._pending = False
+        self._previous = signal.signal(signal.SIGTERM, self._on_signal)
+
+    def close(self) -> None:
+        """Put back the SIGTERM handler this one replaced."""
+        signal.signal(signal.SIGTERM, self._previous)
+
+    def _on_signal(self, signum, frame) -> None:
+        if self._held:
+            self._pending = True
+            return
+        self._flush()
+
+    def _flush(self) -> None:
+        self.save_fn()
+        raise SystemExit(0)
+
+    @contextlib.contextmanager
+    def hold(self):
+        self._held = True
+        try:
+            yield
+        finally:
+            self._held = False
+        if self._pending:
+            self._flush()
+
+
+def install_sigterm_handler(save_fn: Callable[[], None]) -> SigtermHandler:
+    """Preemption hook: checkpoint then exit(0) on SIGTERM.  Python runs
+    the handler in the main thread between two bytecodes; a loop that
+    updates state in place runs each update inside the returned
+    handler's ``hold()``."""
+    return SigtermHandler(save_fn)

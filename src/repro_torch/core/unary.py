@@ -128,3 +128,11 @@ def hamming_distance_packed(a_words: torch.Tensor, b_words: torch.Tensor) -> tor
 def packed_dot_pm1(a_words: torch.Tensor, b_words: torch.Tensor, d: int) -> torch.Tensor:
     """<a, b> for ±1 vectors stored packed: d - 2 * hamming."""
     return d - 2 * hamming_distance_packed(a_words, b_words)
+
+
+def majority_threshold(counts: torch.Tensor, h: int) -> torch.Tensor:
+    """Concurrent binarization (paper contribution 5): popcount >= TOB.
+
+    `counts` holds the number of +1 contributions among `h` votes (the
+    popcount register in Fig. 5); TOB = H/2.  Returns the sign bit."""
+    return counts * 2 >= h

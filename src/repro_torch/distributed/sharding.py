@@ -1,10 +1,19 @@
-"""Meshes of devices and the D-axis sharding rules of the HDC state.
+"""Meshes of devices and the sharding rules.
 
-The torch counterpart of the HDC part of ``repro.distributed.sharding``
-(``ShardingRules``, ``model_mesh``, ``model_axis_for``, the current
-mesh) and the LM path's ``constrain`` and ``constrain_batch`` (the
-identity on one card); the parameter rules of the LM scaffolding are
-not ported.
+The torch counterpart of ``repro.distributed.sharding``: the D-axis
+rules of the HDC state (``ShardingRules.batch_axes``, ``model_mesh``,
+``model_axis_for``, the current mesh), and the LM path's logical-axis
+rules (``TP_LOGICAL``, ``ShardingRules.param_spec`` and
+``activation_spec``, ``tree_param_shardings``, ``abstract_params``) with
+its ``constrain`` and ``constrain_batch`` (the identity on one card).
+
+A spec is a :class:`PartitionSpec`, a tuple with one entry a dimension
+(None, a mesh axis name, or a tuple of them), equal entry for entry to
+JAX's for the same shape, axes and mesh.  A :class:`NamedSharding`
+places a tensor on its mesh's device when every cell of the mesh is one
+device (the meshes the LM path runs on); over several distinct cards it
+raises ``NotImplementedError``, since the port has no cross-card layout
+yet (ROADMAP: "Blocked on hardware").
 
 The JAX package runs its sharded paths under one controller: one
 process drives every device of a ``jax.sharding.Mesh`` through
@@ -22,11 +31,17 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
+from typing import Any
 
 import numpy as np
 import torch
 
 _CURRENT_MESH: list["Mesh | None"] = [None]
+
+# logical name -> preferred mesh axis, in fallback order per tensor
+TP_LOGICAL = ("heads", "kv_heads", "mlp", "vocab", "experts", "rec", "inner",
+              "head_dim", "head_dim2")
 
 
 def _device(dev) -> torch.device:
@@ -103,18 +118,120 @@ def get_current_mesh() -> Mesh | None:
     return _CURRENT_MESH[0]
 
 
+class PartitionSpec(tuple):
+    """One entry a dimension: None, a mesh axis name, or a tuple of names
+    (the counterpart of ``jax.sharding.PartitionSpec``)."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh.  ``device`` is the one device of the mesh's cells."""
+
+    mesh: Mesh
+    spec: PartitionSpec
+
+    def __post_init__(self):
+        if len({str(d) for d in self.mesh.devices.flat}) > 1:
+            raise NotImplementedError(
+                f"a sharding over {self.mesh}: the port places a tensor on one device, and "
+                "a layout over several cards is blocked on hardware (ROADMAP)"
+            )
+
+    @property
+    def device(self) -> torch.device:
+        return self.mesh.devices.flat[0]
+
+    def place(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device)
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardingRules:
     """Mesh axis names: the tensor-model axis splits the trailing D of the
-    HDC state; the batch axes (``pod``, ``data``, those present) split
-    training batches."""
+    HDC state and the LM's tensor-parallel dims; the batch axes (``pod``,
+    ``data``, those present) split training batches.  ``fsdp``
+    additionally shards the largest free dim of every parameter of at
+    least ``fsdp_min_bytes`` (as float32) over the data axis."""
 
     model_axis: str = "model"
     data_axis: str = "data"
     pod_axis: str = "pod"
+    fsdp: bool = False
+    fsdp_min_bytes: int = 1 << 21  # 2 MiB
 
     def batch_axes(self, mesh: Mesh) -> tuple[str, ...]:
         return tuple(a for a in (self.pod_axis, self.data_axis) if a in mesh.axis_names)
+
+    # -- parameters ------------------------------------------------------
+
+    def param_spec(
+        self, shape: tuple[int, ...], axes: tuple[str | None, ...], mesh: Mesh
+    ) -> PartitionSpec:
+        """PartitionSpec for one parameter from its logical axes.  Axes
+        that would not divide are dropped, never erred on."""
+        model = self.model_axis if self.model_axis in mesh.axis_names else None
+        msize = mesh.shape[model] if model else 1
+        assign: list[Any] = [None] * len(shape)
+
+        # 0) "batch" logical axis (decode caches / recurrent states):
+        #    shard over (pod, data) when divisible
+        if "batch" in axes:
+            i = axes.index("batch")
+            b_axes = self.batch_axes(mesh)
+            bsz = math.prod(mesh.shape[a] for a in b_axes) if b_axes else 1
+            if b_axes and shape[i] % bsz == 0 and shape[i] >= bsz:
+                assign[i] = b_axes if len(b_axes) > 1 else b_axes[0]
+
+        # 1) tensor-parallel axis: first logical TP candidate that divides
+        if model:
+            for logical in TP_LOGICAL:
+                if logical in axes:
+                    i = axes.index(logical)
+                    if assign[i] is None and shape[i] % msize == 0 and shape[i] >= msize:
+                        assign[i] = model
+                        break
+
+        # 2) FSDP: largest remaining dim over the data axis, unless the
+        # data axis is already used (e.g. a "batch"-sharded decode cache)
+        data_used = any(
+            self.data_axis == a or (isinstance(a, tuple) and self.data_axis in a)
+            for a in assign
+        )
+        if self.fsdp and not data_used and self.data_axis in mesh.axis_names:
+            dsize = mesh.shape[self.data_axis]
+            if math.prod(shape) * 4 >= self.fsdp_min_bytes:
+                cands = [
+                    (shape[i], i)
+                    for i in range(len(shape))
+                    if assign[i] is None and axes[i] != "layers" and shape[i] % dsize == 0
+                ]
+                if cands:
+                    _, i = max(cands)
+                    assign[i] = self.data_axis
+
+        return PartitionSpec(*assign)
+
+    def param_sharding(self, shape, axes, mesh: Mesh) -> NamedSharding:
+        return NamedSharding(mesh, self.param_spec(tuple(shape), tuple(axes), mesh))
+
+    # -- activations -----------------------------------------------------
+
+    def activation_spec(self, ndim: int, mesh: Mesh, *, batch_dim: int = 0) -> PartitionSpec:
+        """Shard the batch dim over (pod, data); leave the rest unsharded."""
+        axes: list[Any] = [None] * ndim
+        b = self.batch_axes(mesh)
+        if b:
+            axes[batch_dim] = b if len(b) > 1 else b[0]
+        return PartitionSpec(*axes)
+
+    def data_sharding(self, mesh: Mesh, ndim: int = 2) -> NamedSharding:
+        return NamedSharding(mesh, self.activation_spec(ndim, mesh))
 
     def batch_groups(self, mesh: Mesh) -> list[dict[str, int]]:
         """Positions on the batch axes, one per batch shard, in the JAX
@@ -169,3 +286,36 @@ def constrain(x: torch.Tensor, spec=None) -> torch.Tensor:
 def constrain_batch(x: torch.Tensor, rules: ShardingRules | None = None) -> torch.Tensor:
     """The identity, as :func:`constrain` (dim 0 over the batch axes)."""
     return x
+
+
+def tree_param_shardings(mesh: Mesh, spec_tree, axes_tree, rules: ShardingRules):
+    """Mirror trees of ParamSpecs + logical axes -> tree of NamedShardings."""
+
+    def walk(spec, axes):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], axes[k]) for k in spec}
+        return rules.param_sharding(spec.shape, axes, mesh)
+
+    return walk(spec_tree, axes_tree)
+
+
+def abstract_params(cfg, mesh: Mesh, rules: ShardingRules, dtype=None):
+    """The parameter tree as tensors on the ``meta`` device (shapes and
+    dtype, no storage): dry-run stand-ins.  Each leaf's sharding is built
+    as ``tree_param_shardings`` builds it, so a mesh that cannot hold the
+    tree raises here too."""
+    from repro_torch.models import params as pmod
+
+    dt = dtype or cfg.pdtype()
+
+    def walk(tree):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v)
+            else:
+                rules.param_sharding(v.shape, v.axes, mesh)
+                out[k] = torch.empty(v.shape, dtype=dt, device="meta")
+        return out
+
+    return walk(pmod.param_specs(cfg))

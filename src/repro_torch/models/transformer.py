@@ -1,19 +1,20 @@
-"""Model assembly: block dispatch, the layer stack, serving.
+"""Model assembly: block dispatch, the layer stack, loss, serving.
 
-The torch counterpart of ``repro.models.transformer``'s forward and
-serving half (``loss_fn`` waits for the training slice).  Entry points,
+The torch counterpart of ``repro.models.transformer``.  Entry points,
 all functions of (config, params, ...):
 
-  * run_stack(cfg, params, x, mode="train", ...) -> hidden states (a
-    forward pass; the teacher-forcing reference)
+  * loss_fn(cfg, params, batch)          -> scalar loss, metrics
   * prefill(cfg, params, batch)          -> last-token logits, decode state
   * decode_step(cfg, params, state, tok) -> logits, new state
 
 The layer groups' parameters are stacked on a leading axis, as in the
-JAX package, and a Python loop indexes them where JAX scans.  JAX's
-rematerialization only shapes a backward pass, so this forward has
-none.  The non-dividing remainder of the stack runs after the groups
-("tail").
+JAX package, and a Python loop takes them apart where JAX scans: one
+``unbind`` of each stacked leaf per forward, so that a backward pass
+stacks the layers' gradients once (an index per layer would give each
+layer a zero gradient of the whole stack).  Under autograd with
+``cfg.remat`` each block is rematerialized (``_block_fn``), as JAX's
+``jax.checkpoint`` does per layer.  The non-dividing remainder of the
+stack runs after the groups ("tail").
 
 Decode state is {"pos": 0-d int32 tensor, "blocks": stacked per-group
 caches, "tail": [...]} — attention KV caches (rolling for local layers),
@@ -24,9 +25,16 @@ they lie, and the recurrent states are copied into their stacked slots.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention, layers, moe, recurrent, xlstm
@@ -125,9 +133,51 @@ def apply_block(
 # ---------------------------------------------------------------------------
 
 
+# JAX's "dots" remat policy (dots_with_no_batch_dims_saveable): the
+# products without batch dimensions are saved, everything else is
+# recomputed.  ``x @ w`` of activations and a weight is an mm (or addmm)
+# here; the attention scores and the MoE experts are bmm (a batch dim)
+# and are recomputed, as under JAX's policy.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_fn(cfg: ModelConfig, kind: str, kw: dict):
+    """One block as f(bparams, x, cache) -> (x, new_cache, aux).
+
+    Under autograd in train mode with ``cfg.remat``, the block is
+    rematerialized PER LAYER (``torch.utils.checkpoint``, non-reentrant):
+    the backward recomputes one layer at a time and holds only that
+    layer's residuals.  Policy "nothing" saves nothing inside the block;
+    "dots" saves its weight products (``_save_dots``)."""
+
+    def f(bparams, x, cache):
+        return apply_block(cfg, kind, bparams, x, cache=cache, **kw)
+
+    if not (cfg.remat and kw["mode"] == "train" and torch.is_grad_enabled()):
+        return f
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _save_dots)
+                  if cfg.remat_policy == "dots" else noop_context_fn)
+
+    def remat(bparams, x, cache):
+        return checkpoint(f, bparams, x, cache, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=context_fn)
+
+    return remat
+
+
 def _tree_index(tree: Tree, i: int) -> Tree:
     """Layer group i of a stacked tree (views)."""
     return {k: _tree_index(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _tree_unbind(tree: Tree, n: int) -> list[Tree]:
+    """The n layer groups of a stacked tree: one ``unbind`` per leaf."""
+    parts = {k: _tree_unbind(v, n) if isinstance(v, dict) else v.unbind(0) for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _tree_stack(trees: list[Tree]) -> Tree:
@@ -167,14 +217,14 @@ def run_stack(
     new_caches: Tree = {}
     if cfg.n_groups > 0 and cfg.scan_layers:
         stacked = caches["blocks"] if caches else None
+        fns = [_block_fn(cfg, kind, kw) for kind in cfg.layer_pattern]
         per_group = []
-        for gi in range(cfg.n_groups):
-            gparams = _tree_index(params["blocks"], gi)
+        for gi, gparams in enumerate(_tree_unbind(params["blocks"], cfg.n_groups)):
             gcache = _tree_index(stacked, gi) if stacked else {}
             group_caches = {}
-            for i, kind in enumerate(cfg.layer_pattern):
+            for i, fn in enumerate(fns):
                 sub = f"sub{i}"
-                x, nc, a = apply_block(cfg, kind, gparams[sub], x, cache=gcache.get(sub), **kw)
+                x, nc, a = fn(gparams[sub], x, gcache.get(sub))
                 group_caches[sub] = nc
                 aux = aux + a
             if mode == "decode":
@@ -187,7 +237,7 @@ def run_stack(
     tail_caches = []
     for i, kind in enumerate(cfg.tail_pattern):
         tc = caches["tail"][i] if caches else None
-        x, nc, a = apply_block(cfg, kind, params["tail"][f"layer{i}"], x, cache=tc, **kw)
+        x, nc, a = _block_fn(cfg, kind, kw)(params["tail"][f"layer{i}"], x, tc)
         aux = aux + a
         tail_caches.append(nc)
     if with_cache:
@@ -214,10 +264,96 @@ def embed_inputs(cfg: ModelConfig, params: Tree, batch: Tree, positions) -> torc
     return constrain(x)
 
 
+def _unembed_weight(cfg: ModelConfig, params: Tree) -> torch.Tensor:
+    """The (D, V) unembedding: the tied embedding's transpose, or its own leaf."""
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def _logits(cfg: ModelConfig, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """float32 (softcapped) logits of x against a (D, V) weight in x's dtype."""
+    return constrain(layers.softcap((x @ w).float(), cfg.logit_softcap))
+
+
 def unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].to(x.dtype).T if cfg.tie_embeddings else params["unembed"].to(x.dtype)
-    logits = x @ w
-    return constrain(layers.softcap(logits.float(), cfg.logit_softcap))
+    return _logits(cfg, _unembed_weight(cfg, params).to(x.dtype), x)
+
+
+# ---------------------------------------------------------------------------
+# Training loss
+# ---------------------------------------------------------------------------
+
+
+class _Cast(torch.autograd.Function):
+    """``w_cast``, a compute-dtype copy of the master `w` made once per
+    forward, standing in for ``w.to(w_cast.dtype)`` at one use: the
+    backward hands this use's gradient to `w` in w's dtype.  Applied once
+    a use, so autograd sums the uses' gradients in float32 at `w`, as JAX
+    sums the cotangents of its per-use casts."""
+
+    @staticmethod
+    def forward(ctx, w, w_cast):
+        ctx.dtype = w.dtype
+        return w_cast.view_as(w_cast)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+def _ce_chunk(cfg: ModelConfig, w: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor):
+    """CE over one sequence chunk, run under ``checkpoint``: the (B, L, V)
+    float32 logits are recomputed in the backward instead of being saved
+    once per chunk."""
+    logits = _logits(cfg, w, h)
+    logz = torch.logsumexp(logits, dim=-1)
+    # The gold logit by a gather.  JAX takes an einsum with a one-hot, so
+    # that logits sharded over the vocab need no all-gather; on one card
+    # the two are equal (the einsum's terms are x*0 = 0 and x*1 = x, so it
+    # sums exactly the gold logit), and the gather builds no (B, L, V)
+    # one-hot.
+    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    ce = (logz - gold) * mask
+    return ce.sum(), mask.sum()
+
+
+def loss_fn(cfg: ModelConfig, params: Tree, batch: Tree) -> tuple[torch.Tensor, Tree]:
+    """Causal LM loss.  batch: {"tokens": (B, S)} (+"embeddings"/"ctx")."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    dev = tokens.device
+    positions = torch.arange(s, dtype=torch.int32, device=dev)[None, :]
+    x = embed_inputs(cfg, params, batch, positions)
+    ctx = batch.get("ctx")
+    if ctx is not None:
+        ctx = ctx.to(cfg.cdtype())
+    x, _, aux = run_stack(cfg, params, x, mode="train", positions=positions, ctx=ctx)
+    x = layers.rms_norm(x, params["final_norm"])
+
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.cat([torch.ones((b, s - 1), dtype=torch.float32, device=dev),
+                      torch.zeros((b, 1), dtype=torch.float32, device=dev)], dim=1)
+    w = _unembed_weight(cfg, params)
+    w_cast = w.detach().to(x.dtype) if w.dtype != x.dtype else None  # once a step
+
+    def chunk(lo: int, hi: int):
+        wc = w if w_cast is None else _Cast.apply(w, w_cast)
+        return checkpoint(_ce_chunk, cfg, wc, x[:, lo:hi], labels[:, lo:hi], mask[:, lo:hi],
+                          use_reentrant=False, preserve_rng_state=False)
+
+    n_chunks = max(1, cfg.loss_seq_chunks)
+    if n_chunks > 1 and s % n_chunks == 0:
+        # peak logits memory is (B, S/n, V) float32
+        l = s // n_chunks
+        tot = cnt = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(n_chunks):
+            t, c = chunk(i * l, (i + 1) * l)
+            tot, cnt = tot + t, cnt + c
+    else:
+        tot, cnt = chunk(0, s)
+    ce = tot / torch.clamp(cnt, min=1.0)
+    loss = ce + aux
+    return loss, {"ce": ce, "aux": aux, "tokens": cnt}
 
 
 # ---------------------------------------------------------------------------

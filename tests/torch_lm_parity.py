@@ -84,3 +84,49 @@ def run_both(jcfg, tcfg, jtree, batch: dict, s: int, n_dec: int):
         jout.append(np.asarray(jl))
         tout.append(tl.numpy())
     return jout, tout
+
+
+def flat_keys(tree, prefix: str = "") -> list[str]:
+    """Leaf keys of a nested dict in sorted-key order (``jax.tree.leaves``'s)."""
+    if isinstance(tree, dict):
+        return [k for key in sorted(tree) for k in flat_keys(tree[key], f"{prefix}{key}/")]
+    return [prefix[:-1]]
+
+
+def loss_and_grads_both(jcfg, tcfg, jtree, batch: dict):
+    """(loss, grads) of ``loss_fn`` from ``jax.value_and_grad`` (jitted) and
+    from the port's autograd (``training.step.loss_and_grads``), the
+    gradients as numpy lists in ``jax.tree.leaves`` order."""
+    from repro_torch.training.step import loss_and_grads
+    from repro_torch.tree import tree_leaves
+
+    jp = jax.tree.map(jnp.asarray, jtree)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    vg = jax.jit(jax.value_and_grad(lambda p, b: jt.loss_fn(jcfg, p, b), has_aux=True))
+    (jl, jm), jg = vg(jp, jb)
+    tparams = convert.lm_params_from_jax(tcfg, jtree, "cpu")
+    tl, tm, tg = loss_and_grads(tcfg, tparams, {k: torch.from_numpy(v) for k, v in batch.items()})
+    return ((float(jl), {k: float(v) for k, v in jm.items()}, [np.asarray(g) for g in jax.tree.leaves(jg)]),
+            (float(tl), {k: float(v) for k, v in tm.items()}, [g.float().numpy() for g in tree_leaves(tg)]))
+
+
+def check_loss_and_grads(arch: str, **overrides) -> None:
+    """The loss and gradient checks of ``test_torch_lm_train_loss.py``
+    (its docstring states the tolerances) for one smoke arch, its config
+    fields replaced by `overrides`."""
+    jc = dataclasses.replace(as_f32(jget_smoke(arch)), **overrides)
+    tc = dataclasses.replace(as_f32(tget_smoke(arch)), **overrides)
+    tree = fixed_params(arch)
+    batch = batch_for(jc, 2, 16, seed=1)
+    (jl, jm, jg), (tl, tm, tg) = loss_and_grads_both(jc, tc, tree, batch)
+    assert np.isfinite(tl) and abs(tl - jl) <= 1e-5, (tl, jl)
+    for k in ("ce", "aux", "tokens"):
+        assert abs(tm[k] - jm[k]) <= 1e-5, (k, tm[k], jm[k])
+    total = np.sqrt(sum(float(np.sum(np.square(g))) for g in jg))
+    keys = flat_keys(tree)
+    assert len(tg) == len(jg) == len(keys)
+    for key, t, j in zip(keys, tg, jg):
+        assert t.shape == j.shape and np.isfinite(t).all(), key
+        norm = float(np.linalg.norm(j))
+        bound = 1e-4 * norm if norm >= 1e-5 * total else 1e-6
+        assert float(np.abs(t - j).max()) <= bound, (key, float(np.abs(t - j).max()), norm)
