@@ -108,7 +108,19 @@ Phases, each printed as one JSON object per line:
    gradient norm card against CPU; step ms, tokens/s, device ms and idle
    share, mfu, peak memory; a 7.15 GB non-blocking checkpoint of the trained
    state, restored bit for bit; a SIGTERM'd smoke run resumed from its last
-   completed step (``lm_train_phase``).
+   completed step (``lm_train_phase``);
+16. examples: the nine ``repro_torch.examples`` on the card at their own sizes
+   (``train_lm_e2e --preset 100m --steps 30``), launches counted a path each, their
+   printed accuracies, labels and counts held against the JAX scripts' lines kept
+   below (an accuracy of the cosine examples up to JAX's float32 near-ties), the
+   LM examples launching none of the eight kernels, the 100m preset's loss
+   falling; each example's seconds;
+17. dryrun: ``repro_torch.launch.dryrun.run_cell`` on the production mesh of 256
+   ``meta`` devices for qwen3-0.6b x train_4k and olmoe-1b-7b x decode_32k (the
+   seconds, counted flops, per-device argument bytes, roofline terms), and
+   ``run_hdc()``: the 65,536 x 784 fit at D = 8192 on the card through kernel 3,
+   its ms by CUDA events beside its bound, its class sums against the JAX
+   package's checksum.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
@@ -118,6 +130,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import subprocess
@@ -364,18 +377,31 @@ JAX_BASELINE_TRAIN_LABELS = {
     ),
 }
 
-# Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet).  Compare-count
-# and popcount work runs on the CUDA cores: 64 int32 lanes an SM against 128 fp32
-# lanes and no fused multiply-add, so the int32 issue rate is a quarter of the
-# 67 TFLOP/s fp32 rate.  Popcounts issue on a pipe of their own at 16 results a clock
-# an SM (compute capability 9.0, the CUDA C++ Programming Guide's table of arithmetic
-# instruction throughput), a quarter of the 64 int32 lanes at the same clock.
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
-POPC_PER_S = INT32_OPS_PER_S * 16 / 64
-# The int8 tensor cores' dense rate (the same data sheet), for the binary matmul of
-# encode_unary_mxu: a multiply and an add of the int8 product count as 2 ops.
-INT8_TC_OPS_PER_S = 1979e12
+
+def _roofline():
+    """This checkout's ``repro_torch.analysis.roofline``, loaded from its file
+    (a module that imports nothing at import), so that the H100 terms of the
+    bounds below are the port's own, and so that a ``repro_torch`` of another
+    commit ahead on ``sys.path`` (``chip_ab.py``) does not change them."""
+    import importlib.util
+
+    path = ROOT / "src" / "repro_torch" / "analysis" / "roofline.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod  # its dataclass looks its module up there
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# Peaks of one H100 SXM at its 700 W limit (NVIDIA's data sheet; see the
+# roofline module's docstring): HBM bytes, int32 compare-count operations on
+# the CUDA cores, popcounts on their own pipe, and the int8 tensor cores' dense
+# rate (a multiply and an add of the int8 product count as 2 ops).
+_RL = _roofline()
+HBM_BYTES_PER_S = _RL.HBM_BW
+INT32_OPS_PER_S = _RL.INT32_OPS_PER_S
+POPC_PER_S = _RL.POPC_PER_S
+INT8_TC_OPS_PER_S = _RL.INT8_TC_OPS_PER_S
 
 KERNELS = {
     "encode_bundle": dict(
@@ -772,13 +798,13 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
         want_path = "histogram" if tab.dtype == torch.int8 and c <= 48 else "direct"
         if path != want_path:
             raise AssertionError(f"fit_bundle took the {path} path, not {want_path}")
-        n_bytes = b * h * 4 + h * d * tab.element_size() + b * 4 + c * d * 4
         # the class-sum form's work: B*H histogram counts and C*H*D gather-adds
+        n_bytes, n_ops = _RL.fit_bundle_work(b, h, d, c, tab.element_size())
         shape = dict(B=b, H=h, D=d, C=c, table=_dtype(tab),
                      **({"path": path} if path != "histogram" else {}),
                      **({"entries": "full_int8"} if full else {}))
         check("fit_bundle", [got], [p_fn()], shape,
-              (k_fn, p_fn, n_bytes, b * h + c * h * d) if b >= 256 and not full else None,
+              (k_fn, p_fn, n_bytes, n_ops) if b >= 256 and not full else None,
               direct_ops=2 * b * h * d + b * d)
 
     # -- encode_bundle_dynamic: the serving batch at each D-shard width, two
@@ -1538,6 +1564,18 @@ def parse_key(key: str) -> dict:
     return out
 
 
+def by_rows(plain, b: int, rows: int = 4096):
+    """A plain training step's class sums over `b` rows, taken `rows` rows at a
+    time and added: equal to one call (int32 sums are exact in any order), where
+    one call of the plain version at B = 65,536 and D = 8192 would need a 98 GiB
+    compare tensor."""
+    out = None
+    for i in range(0, b, rows):
+        part = plain(slice(i, min(i + rows, b)))
+        out = part if out is None else out + part
+    return out
+
+
 def shape_case(torch, ops, ref, sobol, name: str, key: str, gen):
     """Random inputs at a launched shape (levels 16 where the key does not say
     otherwise, as every path here runs), the call, its plain version on the same
@@ -1566,8 +1604,8 @@ def shape_case(torch, ops, ref, sobol, name: str, key: str, gen):
         c = k["C"]
         lab = torch.randint(0, c, (b,), **i32)
         return (lambda: ops.fit_bundle(x, tab, lab, c)), \
-            (lambda: ref.fit_bundle(x, tab, lab, c)), \
-            b * h * 4 + h * d * tab.element_size() + b * 4 + c * d * 4, b * h + c * h * d, (), 0, {}
+            (lambda: by_rows(lambda r: ref.fit_bundle(x[r], tab, lab[r], c), b)), \
+            *_RL.fit_bundle_work(b, h, d, c, tab.element_size()), (), 0, {}
     if name in ("encode_bundle_dynamic", "fit_bundle_dynamic"):
         b, h, d = k["B"], k["H"], k["D"]
         levels = {"uint8": 16, "uint16": 1024, "uint32": 2**17}[k["dir"]]
@@ -1584,7 +1622,8 @@ def shape_case(torch, ops, ref, sobol, name: str, key: str, gen):
         lab = torch.randint(0, c, (b,), **i32)
         n_bytes = b * h * 4 + h * 32 * es + b * 4 + c * d * 4
         return (lambda: ops.fit_bundle_dynamic(x, dirs, lab, c, d)), \
-            (lambda: ref.fit_bundle_dynamic(x, dirs, lab, c, d)), n_bytes, b * h + c * h * d, \
+            (lambda: by_rows(lambda r: ref.fit_bundle_dynamic(x[r], dirs, lab[r], c, d), b)), \
+            n_bytes, b * h + c * h * d, \
             (), h * d * nb, {"bound_ms_pr16": bound_ms(n_bytes, b * h + c * h * d + h * d * nb)[0]}
     if name in ("hamming_topk", "hamming_packed"):
         b, c, w = k["B"], k["C"], k["W"]
@@ -2237,7 +2276,7 @@ def lm_serve_phase(torch, ops, smi: str, dev, cfg) -> dict:
 
 
 LM_TRAIN_STEPS = 30
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, 700 W (the data sheet)
+H100_BF16_FLOPS = _RL.PEAK_FLOPS  # dense bf16 tensor-core peak, 700 W (the data sheet)
 
 
 def _lm_train_flops(cfg, b: int, s: int) -> tuple[float, float]:
@@ -2538,6 +2577,265 @@ def lm_train_phase(torch, ops, smi: str, dev, cfg) -> dict:
     return launches
 
 
+# The JAX scripts' printed lines that the port's examples must print on the card
+# (``JAX_PLATFORMS=cpu PYTHONPATH=src python examples/<name>.py``, jax 0.9.0 on the
+# CPU).  Cosine ``predict`` scores in float32 and the packages round differently,
+# so the accuracy lines of quickstart and hdc_at_scale are held through their
+# labels instead (JAX_EXAMPLE_LABELS).
+JAX_EXAMPLE_LINES = {
+    "quickstart": [
+        "dataset: synth_mnist (synthetic), 784 features, 10 classes",
+        "uHD  @ i=1 (one pass):      accuracy = 0.9316",
+        "baseline over 3 draws:      avg = 0.9193  (min 0.9043, max 0.9277)",
+        "uHD >= baseline average: True",
+    ],
+    "hdc_at_scale": ["mesh: {'data': 1, 'model': 1}", "Pallas fused kernel         : accuracy 0.9180",
+                     "checkpoint round-trip onto mesh: predictions identical = True"],
+    "vector_search": [
+        "query  label  top-3 classes  hamming distances  margin",
+        "  0      5     [5, 4, 7]      [820, 916, 926]      96",
+        "  1      7     [7, 8, 5]      [876, 903, 926]      27",
+        "  2      2     [2, 6, 1]      [796, 816, 824]      20",
+        "  3      7     [7, 5, 4]      [849, 867, 917]      18",
+        "  4      6     [6, 3, 0]      [885, 926, 944]      41",
+        "  5      7     [7, 5, 6]      [813, 873, 918]      60",
+        "  6      7     [7, 3, 5]      [814, 848, 892]      34",
+        "  7      2     [2, 3, 0]      [869, 900, 910]      31",
+        "",
+        "item memory: 5000 rows, 625 KiB packed (1024 dims -> 32 words/row)",
+        "self-lookup: [0, 1, 2, 3] at distance [0, 0, 0, 0]",
+        "1%-noisy copy of row 7 -> nearest rows [7, 879, 4611] at distances [10, 450, 451]",
+        "after deleting rows 0-2, old row 7 is found at position 4",
+    ],
+    "serve_http": [
+        "healthz: ok",
+        "model: encoder=uhd d=2048 codebook=1605632 bytes",
+        "served accuracy over 64 HTTP requests: 0.9062",
+        "watcher promoted step 1: encoder=uhd_dynamic codebook=25088 bytes (same labels: True)",
+        "drained and shut down",
+    ],
+    "online_learning": [
+        "base accuracy (256 examples): 0.8281",
+        "streamed 2048 feedback examples",
+        "learner: trained 2048",
+        "accuracy 0.8516, bit-identical to offline partial_fit: True",
+    ],
+    "scrape_metrics": ["requests=96 ", '  uhd_requests_total{model="mnist"} 96',
+                       '  uhd_request_latency_seconds_count{model="mnist"} 96'],
+    "fleet_dashboard": ["(0/2 stale, 384 traces merged)", "(0/2 stale, 768 traces merged)",
+                        "(0/2 stale, 1152 traces merged)", "(1/2 stale, 1153 traces merged)",
+                        "served by target 'pool'", "[STALE] single"],
+}
+# The JAX package's labels of each model whose cosine accuracy quickstart (uHD, then
+# the baseline's three draws) and hdc_at_scale print, image by image: the images
+# where JAX's top-2 cosine margin is below 1e-6 (a float32 near-tie, ROADMAP §3), and
+# the sha256 of JAX's int32 labels with those images' set to -1.  The port's labels
+# on the card, hashed the same way, must give the same digest: they may differ from
+# JAX's on a near-tie and nowhere else.  Made with ``JAX_PLATFORMS=cpu
+# PYTHONPATH=src:tests python -c "from test_torch_examples_common import *;
+# print({n: chip_label_constants(jax_example_labels(n)[1]) for n in EXAMPLE_FITS})"``
+# (jax 0.9.0 on the CPU); the example tests hold these constants to that command.
+JAX_EXAMPLE_LABELS = {
+    "quickstart": [
+        {"sha256": "dea9a7ef5f8bd8de49bcf88bc15a7b3d7e8e33105b451303be29278726f21b4f",
+         "near_ties": [14, 19, 80, 228, 246, 254, 285, 448, 484]},
+        {"sha256": "b85d26551db3b5fa7ef324e71e1d7aabbfb5251344d8367aa7c314b77e4908e6",
+         "near_ties": []},
+        {"sha256": "224116b705bf02bc786a7e8b45a4ee32de1ffddffbaa7c18f43666a9dfba8f23",
+         "near_ties": [284]},
+        {"sha256": "f296e02e7b545c10c31d8c6cb9300bdd18eb436bc62388b7ef9e1eacd3974b04",
+         "near_ties": []},
+    ],
+    "hdc_at_scale": [
+        {"sha256": "905aba6d8781d41d3fd0a812f3668f0734741fb14e9bfdf465a0c9050a3c4e24",
+         "near_ties": [27, 36, 157, 194, 214]},
+    ],
+}
+# the test labels of those models' images: (dataset, test images used); each
+# example loads 2,048 training and 512 test images
+EXAMPLE_TEST_SET = {"quickstart": ("mnist", 512), "hdc_at_scale": ("synth_mnist", 256)}
+# the kernels each example's path must launch on the card (path_launches decides the rest)
+EXAMPLE_KERNELS = {
+    "quickstart": ("fit_bundle", "encode_bundle", "encode_unary_mxu", "bundle_binarize"),
+    "hdc_at_scale": ("fit_bundle", "encode_bundle"),
+    "vector_search": ("fit_bundle", "encode_bundle", "hamming_topk"),
+    "serve_http": ("fit_bundle", "encode_bundle", "hamming_topk", "encode_bundle_dynamic"),
+    "online_learning": ("fit_bundle", "encode_bundle", "hamming_topk"),
+    "scrape_metrics": ("fit_bundle", "encode_bundle", "hamming_topk"),
+    "fleet_dashboard": ("fit_bundle", "encode_bundle", "hamming_topk"),
+    "serve_lm": (),
+    "train_lm_e2e": (),
+}
+# The class sums of ``run_hdc()`` (65,536 synthetic images x 784 features, 16
+# classes, D = 8192) from the JAX package's fit on the same images, made on the CPU
+# (about 10 s) with: JAX_PLATFORMS=cpu PYTHONPATH=src python -c "import hashlib,
+# numpy as np; from repro.core import HDCConfig, HDCModel; rng =
+# np.random.default_rng(0); x = rng.integers(0, 256, (65536, 784)).astype(np.float32);
+# y = rng.integers(0, 16, 65536).astype(np.int32); m = HDCModel.create(HDCConfig(
+# n_features=784, n_classes=16, d=8192)).fit(x, y); print(hashlib.sha256(
+# np.asarray(m.class_sums).astype('<i4').tobytes()).hexdigest())"
+JAX_DRYRUN_HDC_SHA256 = "682cd90f10f4ded80e6c9f15e40d554d9bcffd91b52f44906b87aac3c0293cfd"
+
+
+def labels_sha256(labels, near_ties) -> str:
+    """sha256 of int32 labels with the near-tie images' labels set to -1."""
+    import numpy as np
+
+    masked = np.asarray(labels, dtype="<i4").copy()
+    masked[list(near_ties)] = -1
+    return hashlib.sha256(masked.tobytes()).hexdigest()
+
+
+def _check_example(name: str, lines: list[str], labels: list) -> dict:
+    """The printed lines of one example against JAX_EXAMPLE_LINES, every
+    listed line (or fragment) present as JAX printed it; for quickstart and
+    hdc_at_scale, the labels of every ``predict`` call instead of the
+    accuracy lines: each model's labels equal JAX's off its near-ties
+    (JAX_EXAMPLE_LABELS), and the accuracy printed is that of those labels."""
+    import numpy as np
+
+    want = JAX_EXAMPLE_LINES.get(name, [])
+    if name not in JAX_EXAMPLE_LABELS:
+        return {"missing": [w for w in want if not any(w in x for x in lines)]}
+    from repro_torch.data import load_dataset
+
+    dataset, n_test = EXAMPLE_TEST_SET[name]
+    truth = load_dataset(dataset, n_train=2048, n_test=512).test_labels[:n_test]
+    refs = JAX_EXAMPLE_LABELS[name]
+    if name == "hdc_at_scale":  # the fitted model's labels, then the restored checkpoint's
+        if len(labels) != 2 or not np.array_equal(labels[0], labels[1]):
+            raise AssertionError("hdc_at_scale: the restored model's labels differ")
+        labels = labels[:1]
+    if len(labels) != len(refs):
+        raise AssertionError(f"{name}: {len(labels)} predict calls, {len(refs)} models")
+    for i, (got, ref) in enumerate(zip(labels, refs)):
+        if labels_sha256(got, ref["near_ties"]) != ref["sha256"]:
+            raise AssertionError(f"{name}: model {i}'s labels differ from JAX's off its "
+                                 f"near-ties {ref['near_ties']}")
+    accs = [float(np.mean(got == truth)) for got in labels]
+    if name == "quickstart":
+        base = accs[1:]
+        printed = [want[0], f"uHD  @ i=1 (one pass):      accuracy = {accs[0]:.4f}",
+                   f"baseline over 3 draws:      avg = {sum(base)/len(base):.4f}  "
+                   f"(min {min(base):.4f}, max {max(base):.4f})", want[3]]
+    else:
+        printed = [want[0], f"{'CUDA kernels':28s}: accuracy {accs[0]:.4f}", want[2]]
+    return {"accuracies": accs, "near_ties": [len(r["near_ties"]) for r in refs],
+            "labels_equal_jax_off_near_ties": True,
+            "missing": [x for x in printed if x not in lines]}
+
+
+@contextlib.contextmanager
+def recording_labels(out: list):
+    """Append the labels of every ``hdc_model.predict`` call (the function
+    every model's ``predict`` and ``evaluate`` reach) to `out`, as numpy."""
+    from repro_torch.core import hdc_model
+
+    predict = hdc_model.predict
+
+    def recording(model, images):
+        labels = predict(model, images)
+        out.append(labels.cpu().numpy())
+        return labels
+
+    hdc_model.predict = recording
+    try:
+        yield
+    finally:
+        hdc_model.predict = predict
+
+
+def examples_phase(torch, ops) -> dict[str, dict]:
+    """The nine examples of ``repro_torch.examples`` on the card at their own
+    sizes (``train_lm_e2e --preset 100m --steps 30``), each a path whose
+    launches are counted: its printed lines held against the JAX script's
+    (JAX_EXAMPLE_LINES), the LM examples against no HDC kernel; the
+    seconds of each."""
+    import importlib
+    import io
+    import shutil
+
+    t_phase = time.perf_counter()
+    ckpt = ROOT / "build" / "chip_smoke_lm_e2e"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = {name: ["--device", "cuda"] for name in EXAMPLE_KERNELS}
+    argv["train_lm_e2e"] += ["--preset", "100m", "--steps", "30", "--ckpt-dir", str(ckpt)]
+    by_path, report, printed = {}, {}, {}
+    try:
+        for name, kernels in EXAMPLE_KERNELS.items():
+            mod = importlib.import_module(f"repro_torch.examples.{name}")
+            buf = io.StringIO()
+
+            labels: list = []
+            record = (recording_labels(labels) if name in JAX_EXAMPLE_LABELS
+                      else contextlib.nullcontext())  # no host read inside a graph capture
+
+            def run(mod=mod, buf=buf, name=name, record=record):
+                with contextlib.redirect_stdout(buf), record:
+                    return mod.main(argv[name])
+
+            t0 = time.perf_counter()
+            absent = () if kernels else tuple(KERNELS)  # the LM examples launch none
+            rc, by_path[f"example_{name}"] = path_launches(ops, f"example_{name}", kernels, run,
+                                                           absent)
+            lines = printed[name] = buf.getvalue().splitlines()
+            check = _check_example(name, lines, labels)
+            report[name] = {"seconds": time.perf_counter() - t0, "rc": rc, **check}
+            emit("example", name=name, seconds=report[name]["seconds"], rc=rc, lines=lines[-24:],
+                 **check)
+            if rc != 0 or check["missing"]:
+                raise AssertionError(f"example {name} failed: rc {rc}, missing {check['missing']}")
+        losses = _train_losses("\n".join(printed["train_lm_e2e"]))
+        if not (losses and all(v == v for v in losses.values())
+                and losses[max(losses)] < losses[min(losses)]):
+            raise AssertionError(f"train_lm_e2e --preset 100m: losses {losses}")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    emit("examples_phase", seconds=time.perf_counter() - t_phase,
+         per_example={k: v["seconds"] for k, v in report.items()})
+    return by_path
+
+
+def dryrun_phase(torch, ops, smi: str) -> dict[str, dict]:
+    """``repro_torch.launch.dryrun``: ``run_cell`` on two cells of the
+    production mesh over ``meta`` (qwen3-0.6b x train_4k, olmoe-1b-7b x
+    decode_32k: seconds, counted flops, per-device argument bytes, the
+    roofline terms), then ``run_hdc()`` at D = 8192 on the card (kernel 3 on
+    65,536 x 784 images, 16 classes; launches counted): its fit ms by CUDA
+    events, its bound, and its class sums against JAX_DRYRUN_HDC_SHA256."""
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    cells = {}
+    for arch, shape in (("qwen3-0.6b", "train_4k"), ("olmoe-1b-7b", "decode_32k")):
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(arch, shape, do_roofline=True, verbose=False)
+        cells[f"{arch} x {shape}"] = {
+            "seconds": time.perf_counter() - t0, "run_s": rec["run_s"],
+            "flops_global": rec["raw"]["flops_global"], "model_flops": rec["model_flops"],
+            "argument_bytes": rec["memory"]["argument_bytes"],
+            "peak_bytes_est": rec["memory"]["peak_bytes_est"], "terms": rec["terms"],
+        }
+        emit("dryrun_cell", arch=arch, shape=shape, **cells[f"{arch} x {shape}"])
+        if not (rec["raw"]["flops_global"] > 0 and rec["memory"]["argument_bytes"] > 0):
+            raise AssertionError(f"the dry-run of {arch} x {shape} counted nothing")
+    t0 = time.perf_counter()
+    rec, launches = path_launches(ops, "dryrun_hdc", ("fit_bundle",),
+                                  lambda: dryrun.run_hdc(d=8192, verbose=False),
+                                  tuple(k for k in KERNELS if k != "fit_bundle"))
+    hdc = {k: rec[k] for k in ("shape", "fit_ms", "fit_ms_all", "timed_by", "bound_ms",
+                               "per_device_bytes", "class_sums_sha256")}
+    hdc.update(seconds=time.perf_counter() - t0, jax_sha256=JAX_DRYRUN_HDC_SHA256,
+               equal=rec["class_sums_sha256"] == JAX_DRYRUN_HDC_SHA256,
+               fit_bound_ratio=rec["bound_ms"] / rec["fit_ms"], nvidia_smi=smi)
+    emit("dryrun_hdc", **hdc)
+    if not hdc["equal"]:
+        raise AssertionError("run_hdc's class sums differ from the JAX package's")
+    emit("dryrun_phase", seconds=time.perf_counter() - t_phase)
+    return {"dryrun_hdc": launches}
+
+
+
 def main() -> int:
     import torch
 
@@ -2648,6 +2946,8 @@ def main() -> int:
 
     by_path["lm_serve"] = lm_serve_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
     by_path["lm_train"] = lm_train_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
+    by_path.update(examples_phase(torch, ops))
+    by_path.update(dryrun_phase(torch, ops, smi))
 
     lost = lost_phase(torch, ops, ref, sobol)
     line = []

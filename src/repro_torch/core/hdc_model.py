@@ -209,19 +209,12 @@ class HDCModel(nn.Module):
 
     def fit(self, images, labels) -> "HDCModel":
         """Single-pass training on this data alone (a new model)."""
-        sums, n = self._fit_sums(images, labels)
-        return self._with_state(sums, n)
+        return fit(self, images, labels)
 
     def partial_fit(self, images, labels, *, donate: bool = False) -> "HDCModel":
         """Accumulate one batch into the class sums.  Returns a new model;
         with ``donate=True`` this model is updated in place and returned."""
-        sums, n = self._fit_sums(images, labels)
-        if donate:
-            n_seen = nseen_int(nseen_array(self.n_seen + n))  # validate before mutating
-            self.class_sums += sums
-            self.n_seen = n_seen
-            return self
-        return self._with_state(self.class_sums + sums, self.n_seen + n)
+        return partial_fit(self, images, labels, donate=donate)
 
     def fit_batches(self, batches: Iterable[tuple[Any, Any]]) -> "HDCModel":
         """Memory-bounded fit over (images, labels) batches, equal to `fit`
@@ -258,17 +251,7 @@ class HDCModel(nn.Module):
 
     def predict(self, images) -> torch.Tensor:
         """Encode queries, score against the class HVs, argmax -> (B,) int32."""
-        cfg = self.cfg
-        q = self.encode(images)
-        if cfg.binarize_query:
-            q = encoding.binarize(q).to(torch.int32)
-        if cfg.similarity == "hamming":
-            sim = metrics.hamming_similarity_packed(
-                self.pack_queries(q), self.pack(), cfg.d
-            ).to(torch.float32)
-        else:
-            sim = metrics.SIMILARITIES[cfg.similarity](q, self.class_hvs)
-        return metrics.classify(sim)
+        return predict(self, images)
 
     def evaluate(self, images, labels, batch_size: int = 1024) -> float:
         """Test accuracy, evaluated in batches."""
@@ -391,6 +374,46 @@ class HDCModel(nn.Module):
     def shard(self, mesh, *, rules=None) -> "ShardedHDCModel":
         """This model's state split per :meth:`shardings` over `mesh`."""
         return ShardedHDCModel.from_model(self, mesh, rules=rules)
+
+
+# ---------------------------------------------------------------------------
+# Training and inference steps: the JAX package's module-level ``fit`` /
+# ``partial_fit`` / ``predict``, which the HDCModel methods call
+# ---------------------------------------------------------------------------
+
+
+def fit(model: HDCModel, images, labels) -> HDCModel:
+    """Single-pass training from scratch: reset, encode, bundle (a new model)."""
+    sums, n = model._fit_sums(images, labels)
+    return model._with_state(sums, n)
+
+
+def partial_fit(model: HDCModel, images, labels, *, donate: bool = False) -> HDCModel:
+    """Accumulate one batch of bundled class sums into the model.  Returns
+    a new model; with ``donate=True`` `model` is updated in place and
+    returned."""
+    sums, n = model._fit_sums(images, labels)
+    if donate:
+        n_seen = nseen_int(nseen_array(model.n_seen + n))  # validate before mutating
+        model.class_sums += sums
+        model.n_seen = n_seen
+        return model
+    return model._with_state(model.class_sums + sums, model.n_seen + n)
+
+
+def predict(model: HDCModel, images) -> torch.Tensor:
+    """Encode queries, score against class HVs, argmax -> (B,) int32."""
+    cfg = model.cfg
+    q = model.encode(images)
+    if cfg.binarize_query:
+        q = encoding.binarize(q).to(torch.int32)
+    if cfg.similarity == "hamming":
+        sim = metrics.hamming_similarity_packed(
+            model.pack_queries(q), model.pack(), cfg.d
+        ).to(torch.float32)
+    else:
+        sim = metrics.SIMILARITIES[cfg.similarity](q, model.class_hvs)
+    return metrics.classify(sim)
 
 
 @dataclasses.dataclass(frozen=True)

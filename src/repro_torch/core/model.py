@@ -11,6 +11,13 @@ other (:func:`manifest_config`).  The backend is a choice made
 where a model runs, not model state: a manifest's backend reads back as
 ``"auto"`` (:func:`config_from_manifest`), so a checkpoint written with
 either package's ``"ref"`` or ``"pallas"`` loads on a card and on the CPU.
+
+It also keeps the JAX package's tombstone for the removed functional API
+(``build_codebooks`` / ``encode`` / ``fit`` / ``fit_streaming`` /
+``predict`` / ``evaluate``): the module ``__getattr__`` raises an
+``AttributeError`` naming the ``HDCModel`` replacement for each, and the
+``train_and_eval`` and ``baseline_iterative_search`` forwards to
+:mod:`repro_torch.core.hdc_model`.
 """
 
 from __future__ import annotations
@@ -101,3 +108,42 @@ def config_from_manifest(raw: dict[str, Any]) -> HDCConfig:
     package's ``"pallas"``), on the CPU ``"ref"``."""
     raw = {k: v for k, v in raw.items() if k not in _LEGACY_FIELDS}
     return HDCConfig(**dict(raw, backend="auto"))
+
+
+# ---------------------------------------------------------------------------
+# Legacy functional API of the JAX package: removed there, absent here
+# ---------------------------------------------------------------------------
+
+# name -> the HDCModel replacement, used for the helpful AttributeError.
+_REMOVED_FLAT_API = {
+    "build_codebooks": "HDCModel.create(cfg).codebooks",
+    "encode": "HDCModel.create(cfg).encode(images)",
+    "fit": "HDCModel.create(cfg).fit(images, labels)",
+    "fit_streaming": "HDCModel.create(cfg).fit_batches(batches)",
+    "predict": "HDCModel.predict(images)",
+    "evaluate": "HDCModel.evaluate(images, labels)",
+}
+
+
+def __getattr__(name: str) -> Any:
+    if name in _REMOVED_FLAT_API:
+        raise AttributeError(
+            f"repro_torch.core.{name}(cfg, books, ...) was removed after a "
+            f"deprecation period; use {_REMOVED_FLAT_API[name]} instead "
+            "(see DESIGN.md §2 for the migration table)"
+        )
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def train_and_eval(*args, **kw) -> float:
+    """Convenience end-to-end — forwards to repro_torch.core.hdc_model."""
+    from repro_torch.core import hdc_model
+
+    return hdc_model.train_and_eval(*args, **kw)
+
+
+def baseline_iterative_search(*args, **kw) -> list[float]:
+    """The paper's baseline protocol — forwards to repro_torch.core.hdc_model."""
+    from repro_torch.core import hdc_model
+
+    return hdc_model.baseline_iterative_search(*args, **kw)

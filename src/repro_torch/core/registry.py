@@ -23,7 +23,7 @@ through ``ops.hamming_topk``, which also chooses by device.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Callable
+from typing import TYPE_CHECKING, Callable, Protocol, runtime_checkable
 
 import torch
 
@@ -39,6 +39,20 @@ EncodeSliceFn = Callable[..., torch.Tensor]
 #: (q_words, c_words, d, k) -> ((B, k) int32 indices, (B, k) int32 distances)
 TopkFn = Callable[..., tuple[torch.Tensor, torch.Tensor]]
 AvailabilityProbe = Callable[[str], bool]  # platform -> usable?
+
+
+@runtime_checkable
+class Encoder(Protocol):
+    """What a registered encoder must provide (the public protocol)."""
+
+    name: str
+
+    def build_codebooks(self, cfg: "HDCConfig") -> dict[str, torch.Tensor]: ...
+
+    def encode(
+        self, cfg: "HDCConfig", codebooks: dict[str, torch.Tensor], x_q: torch.Tensor,
+        *, backend: str = "auto",
+    ) -> torch.Tensor: ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +248,11 @@ def get_encoder(name: str) -> EncoderBase:
         ) from None
 
 
+def encoder_names() -> tuple[str, ...]:
+    _ensure_builtin()
+    return tuple(sorted(_ENCODERS))
+
+
 def backend_names(encoder: str) -> tuple[str, ...]:
     _ensure_builtin()
     if encoder not in _BACKENDS:
@@ -269,6 +288,16 @@ def resolve_backend(name: str | None, platform: str, *, encoder: str) -> str:
             "on the CPU"
         )
     return name
+
+
+def backend_table() -> dict[str, dict[str, BackendSpec]]:
+    """Read-only snapshot of the full registry (for docs/benchmarks):
+    encoder -> backend name -> spec.  The port's backends are ``"ref"``
+    (the plain PyTorch datapath, for CPU tensors) and ``"cuda"`` (the
+    hand-written kernels, for tensors on a card), not the JAX package's
+    names (``"naive"``, ``"pallas"``, ...)."""
+    _ensure_builtin()
+    return {e: dict(t) for e, t in _BACKENDS.items()}
 
 
 _IMPLS = ("cuda", "ref")

@@ -1,13 +1,13 @@
 """Sobol direction numbers and threshold tables for the uHD encoders (numpy).
 
-A copy of ``repro.core.sobol`` less its discrepancy helpers (the port
-imports nothing of the JAX package): primitive polynomials over GF(2),
-seeded odd initial direction integers, the M-bit quantized direction
-matrix that is the whole codebook of ``uhd_dynamic``, and the Gray-code
-sequence that fills the (H, D) threshold table of ``uhd``.  The numbers
-are bit-identical to the JAX package's for every ``(n_dims, levels,
-seed, skip)``; ``tests/test_torch_core.py`` and
-``tests/test_torch_table.py`` pin that.
+A copy of ``repro.core.sobol`` (the port imports nothing of the JAX
+package): primitive polynomials over GF(2), seeded odd initial direction
+integers, the M-bit quantized direction matrix that is the whole codebook
+of ``uhd_dynamic``, the Gray-code sequence that fills the (H, D)
+threshold table of ``uhd``, and the 1-D star discrepancy of the
+low-discrepancy tests.  The numbers are bit-identical to the JAX
+package's for every ``(n_dims, levels, seed, skip)``;
+``tests/test_torch_core.py`` and ``tests/test_torch_table.py`` pin that.
 """
 
 from __future__ import annotations
@@ -223,3 +223,15 @@ def sobol_table_for_features(
     if levels is None:
         return sobol_sequence(n_features, d, seed=seed, skip=skip).T.copy()
     return quantized_sobol(n_features, d, levels, seed=seed, skip=skip).T.copy()
+
+
+def star_discrepancy_1d(points: np.ndarray) -> float:
+    """Exact 1-D star discrepancy (for LD property tests).
+
+    D*_N = max_i max(|x_(i) - i/N|, |x_(i) - (i+1)/N|) over sorted points.
+    LD sequences achieve O(log N / N); uniform pseudo-random is O(1/sqrt N).
+    """
+    x = np.sort(np.asarray(points, dtype=np.float64))
+    n = len(x)
+    i = np.arange(n)
+    return float(np.maximum(np.abs(x - i / n), np.abs(x - (i + 1) / n)).max())

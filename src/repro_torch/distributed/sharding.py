@@ -46,9 +46,12 @@ TP_LOGICAL = ("heads", "kv_heads", "mlp", "vocab", "experts", "rec", "inner",
 
 def _device(dev) -> torch.device:
     """A mesh cell's device: ``cuda`` gets the current card's index, so
-    that equal devices compare equal; a CUDA device without a card raises."""
+    that equal devices compare equal; a CUDA device without a card raises.
+    ``meta`` (the dry-run's stand-in, no storage) is taken as it is."""
     from repro_torch.core.hdc_model import resolve_device
 
+    if torch.device(dev).type == "meta":
+        return torch.device("meta")
     dev = resolve_device(dev)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -58,7 +61,7 @@ def _device(dev) -> torch.device:
 class Mesh:
     """An n-dimensional grid of devices with one name per axis (the
     counterpart of ``jax.sharding.Mesh``).  All devices are of one type,
-    ``cuda`` or ``cpu``."""
+    ``cuda`` or ``cpu``, or ``meta`` for the dry-run's abstract mesh."""
 
     def __init__(self, devices, axis_names: tuple[str, ...]):
         grid = np.asarray(devices, dtype=object)
@@ -131,7 +134,10 @@ class PartitionSpec(tuple):
 
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A spec on a mesh.  ``device`` is the one device of the mesh's cells."""
+    """A spec on a mesh.  ``device`` is the one device of the mesh's cells.
+    A mesh that names one device n times is accepted (the CPU's forced
+    shards, ``cuda:0`` four times, the dry-run's ``meta`` mesh at pod
+    scale); one over several distinct devices raises."""
 
     mesh: Mesh
     spec: PartitionSpec
@@ -299,11 +305,20 @@ def tree_param_shardings(mesh: Mesh, spec_tree, axes_tree, rules: ShardingRules)
     return walk(spec_tree, axes_tree)
 
 
+def abstract_tensor(shape, dtype, sharding: NamedSharding) -> torch.Tensor:
+    """A tensor on the ``meta`` device (shape and dtype, no storage) with
+    its sharding beside it as ``.sharding``: the counterpart of
+    ``jax.ShapeDtypeStruct(shape, dtype, sharding=...)``."""
+    t = torch.empty(tuple(shape), dtype=dtype, device="meta")
+    t.sharding = sharding
+    return t
+
+
 def abstract_params(cfg, mesh: Mesh, rules: ShardingRules, dtype=None):
     """The parameter tree as tensors on the ``meta`` device (shapes and
-    dtype, no storage): dry-run stand-ins.  Each leaf's sharding is built
-    as ``tree_param_shardings`` builds it, so a mesh that cannot hold the
-    tree raises here too."""
+    dtype, no storage): dry-run stand-ins, each with its ``NamedSharding``
+    as ``.sharding`` (built as ``tree_param_shardings`` builds it, so a
+    mesh that cannot hold the tree raises here too)."""
     from repro_torch.models import params as pmod
 
     dt = dtype or cfg.pdtype()
@@ -314,8 +329,7 @@ def abstract_params(cfg, mesh: Mesh, rules: ShardingRules, dtype=None):
             if isinstance(v, dict):
                 out[k] = walk(v)
             else:
-                rules.param_sharding(v.shape, v.axes, mesh)
-                out[k] = torch.empty(v.shape, dtype=dt, device="meta")
+                out[k] = abstract_tensor(v.shape, dt, rules.param_sharding(v.shape, v.axes, mesh))
         return out
 
     return walk(pmod.param_specs(cfg))

@@ -1,0 +1,420 @@
+"""Pod-scale dry-run: run every (architecture x shape x mesh) cell's step
+on ``meta`` tensors (shapes and dtypes, no storage, no card), count its
+flops and bytes, reckon its per-device memory on the production mesh,
+and write roofline records.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma-7b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all              # 40-cell sweep
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod  # 512-device mesh
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all --roofline   # + roofline terms
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch hdc_mnist   # the paper's system
+
+The torch counterpart of ``repro.launch.dryrun``, with its flags, cells
+and record keys.  JAX lowers and compiles each cell under 512 forced host
+devices; the port has no compiler to ask, so it *runs* the step function
+JAX would lower (``make_train_step`` with backward and AdamW,
+``transformer.prefill``, ``transformer.decode_step``) on ``meta``
+tensors at the global shape, and records:
+
+  * ``raw.flops``: ``torch.utils.flop_counter.FlopCounterMode``'s count of
+    the run over the mesh's devices.  It counts matmuls and attention
+    only, where XLA counts every op; ``model_flops`` and
+    ``useful_flops_ratio`` stand beside it, as in JAX's records;
+  * ``raw.bytes``: the bytes each op reads and writes (its tensor inputs
+    and outputs; views move none), over the devices: the counterpart of
+    XLA's "bytes accessed";
+  * ``raw.coll_bytes``: 0, with the reason in ``raw.coll_note``: the port
+    compiles no partitioned program whose collectives it could count, and
+    a reckoning from the sharding specs did not come close to XLA's (see
+    ``repro_torch.analysis.roofline``), so ``coll_by_type`` and
+    ``coll_counts`` are None and the terms bound one card's compute and
+    memory only;
+  * ``memory.argument_bytes``: each input leaf's shard under its spec,
+    summed over params, optimizer state, batch and step: equal to XLA's
+    ``argument_size_in_bytes`` for the same cell;
+  * ``memory.peak_bytes_est``: the arguments' per-device bytes plus the
+    run's peak of live ``meta`` storages beyond its inputs (tracked under
+    a ``TorchDispatchMode``) split evenly over the devices, and that
+    global peak as ``peak_bytes_global``.  The split is an estimate:
+    the run is one program over the global shape, not a partitioned one.
+
+JAX lowers unrolled variants for ``--roofline`` because XLA counts a
+``while`` body once.  The port runs every layer eagerly, so the counter
+already sees every layer, and ``--roofline`` fills ``terms`` straight
+from the counted step (``corrected`` is the raw count).
+
+This module sets no environment variable at import (JAX's first lines
+force its host device count) and needs no card: the meta run is the
+exception to the port's "runs on the card unless given the CPU".
+:func:`run_hdc` is the one part that runs on a device: the paper's fit
+at the dry-run's size, on the card by default.
+
+Records land in ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import hashlib
+import json
+import time
+import traceback
+import weakref
+from pathlib import Path
+
+import numpy as np
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.analysis import roofline
+from repro_torch.configs import ARCHS, get_config
+from repro_torch.distributed.sharding import get_current_mesh, set_current_mesh
+from repro_torch.launch.mesh import describe, make_production_mesh
+from repro_torch.launch.specs import input_specs_for, per_device_bytes, tensors
+from repro_torch.models import transformer
+from repro_torch.models.config import LONG_CONTEXT_OK, SHAPES
+from repro_torch.optim import OptimizerConfig
+from repro_torch.training.step import make_train_step
+
+ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
+COLL_NOTE = ("not counted: the port compiles no partitioned program, and a reckoning from "
+             "the sharding specs did not come close to XLA's collectives; the collective "
+             "term is 0")
+
+
+def production_meta_mesh(multi_pod: bool = False):
+    """The production mesh (16 x 16, or 2 x 16 x 16) over the ``meta`` device."""
+    n = 512 if multi_pod else 256
+    return make_production_mesh(multi_pod=multi_pod, devices=[torch.device("meta")] * n)
+
+
+class StepCounter(TorchDispatchMode):
+    """Live ``meta`` storage bytes (current and peak) and the bytes each op
+    reads and writes, over one run.  A storage is live from the op that
+    makes it until its last tensor is freed."""
+
+    def __init__(self, inputs):
+        super().__init__()
+        self.live: dict[int, int] = {}
+        self.current = self.peak = self.accessed = 0
+        for t in tensors(inputs):
+            self._track(t)
+        self.inputs = self.current
+
+    def _track(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = st._cdata
+        if key in self.live:
+            return
+        n = st.nbytes()
+        self.live[key] = n
+        self.current += n
+        self.peak = max(self.peak, self.current)
+        weakref.finalize(st, self._free, key)
+
+    def _free(self, key: int) -> None:
+        self.current -= self.live.pop(key, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        outs = tensors(out)
+        if not func.is_view:
+            ins = tensors((args, kwargs))
+            self.accessed += sum(t.numel() * t.element_size() for t in ins + outs)
+        for t in outs:
+            self._track(t)
+        return out
+
+
+def _run(cfg, shape, inputs):
+    """Run the step function JAX's dry-run lowers for the shape kind."""
+    if shape.kind == "train":
+        step_fn = make_train_step(cfg, OptimizerConfig())
+        return step_fn(inputs["params"], inputs["opt_state"], inputs["batch"], 0)
+    if shape.kind == "prefill":
+        return transformer.prefill(cfg, inputs["params"], inputs["batch"])
+    extra = {"embeddings": inputs["embeddings"]} if cfg.input_mode == "embeddings" else {}
+    return transformer.decode_step(cfg, inputs["params"], inputs["state"], inputs["tokens"],
+                                   **extra)
+
+
+def _donated(shape, inputs) -> dict:
+    """The inputs a step updates in place (JAX's donated arguments)."""
+    if shape.kind == "train":
+        return {"params": inputs["params"], "opt_state": inputs["opt_state"]}
+    if shape.kind == "decode":
+        return {"state": inputs["state"]}
+    return {}
+
+
+def count_step(cfg, shape, inputs) -> dict:
+    """Run one step on meta tensors; its flops, bytes accessed and live
+    storage peak (global: the run is one program over the global shape)."""
+    counter = StepCounter(inputs)
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as flops, counter:
+        out = _run(cfg, shape, inputs)
+    held = {t.untyped_storage()._cdata for t in tensors(inputs)}
+    out_bytes = sum(t.numel() * t.element_size() for t in tensors(out)
+                    if t.untyped_storage()._cdata not in held)
+    return {
+        "run_s": time.perf_counter() - t0,
+        "flops": float(flops.get_total_flops()),
+        "bytes": float(counter.accessed),
+        "inputs_global": counter.inputs,
+        "peak_global": counter.peak,
+        "outputs_global": out_bytes,
+    }
+
+
+def run_cell(
+    arch: str,
+    shape_name: str,
+    *,
+    multi_pod: bool = False,
+    do_roofline: bool = False,
+    verbose: bool = True,
+    overrides: dict | None = None,
+) -> dict:
+    """Run one cell's step on meta tensors and record it.
+
+    `overrides` patches the registered config (perf-iteration variants)."""
+    mesh = production_meta_mesh(multi_pod)
+    n_chips = mesh.size
+    record: dict = {
+        "arch": arch, "shape": shape_name, "mesh": "multi" if multi_pod else "single",
+        "chips": n_chips, "overrides": overrides or {},
+    }
+    previous = get_current_mesh()
+    set_current_mesh(mesh)
+    try:
+        base_cfg = get_config(arch)
+        if overrides:
+            base_cfg = dataclasses.replace(base_cfg, **overrides)
+        t0 = time.perf_counter()
+        cfg, shape, rules, inputs = input_specs_for(base_cfg, shape_name, mesh)
+        record["lower_s"] = round(time.perf_counter() - t0, 2)  # building the specs
+        record["compile_s"] = None  # nothing is compiled
+        counted = count_step(cfg, shape, inputs)
+        record["run_s"] = round(counted["run_s"], 2)
+
+        args = per_device_bytes(inputs)
+        alias = per_device_bytes(_donated(shape, inputs))
+        temp_global = max(counted["peak_global"] - counted["inputs_global"], 0)
+        record["memory"] = {
+            "argument_bytes": args,
+            "output_bytes": alias + counted["outputs_global"] // n_chips,
+            "temp_bytes": temp_global // n_chips,
+            "alias_bytes": alias,
+            "peak_bytes_est": args + temp_global // n_chips,
+            "peak_bytes_global": counted["peak_global"],
+            "estimate": "argument and alias bytes exact from the specs; output and temp bytes "
+                        "the global run's split evenly over the devices",
+        }
+        record["raw"] = {
+            "flops": counted["flops"] / n_chips,
+            "bytes": counted["bytes"] / n_chips,
+            "coll_bytes": 0.0,
+            "coll_by_type": None,
+            "coll_counts": None,
+            "coll_note": COLL_NOTE,
+            "flops_global": counted["flops"],
+            "flops_counted": "FlopCounterMode: matmuls and attention only",
+        }
+        mf = roofline.model_flops(cfg, shape, n_chips)
+        record["model_flops"] = mf
+        record["useful_flops_ratio"] = mf / counted["flops"] if counted["flops"] else 0.0
+
+        if verbose:
+            mem = record["memory"]
+            print(
+                f"  [{describe(mesh)}] run {record['run_s']:.1f}s | args "
+                f"{mem['argument_bytes']/2**30:.2f} GiB  temp {mem['temp_bytes']/2**30:.2f} GiB  "
+                f"peak~{mem['peak_bytes_est']/2**30:.2f} GiB | flops {counted['flops']:.3e} "
+                f"(model {mf:.3e})", flush=True,
+            )
+
+        if do_roofline:
+            raw = record["raw"]
+            record["corrected"] = {k: raw[k] for k in ("flops", "bytes", "coll_bytes")}
+            record["roofline_s"] = 0.0  # eager: every layer was counted, no variants to run
+            terms = roofline.RooflineTerms(raw["flops"], raw["bytes"], raw["coll_bytes"])
+            record["terms"] = terms.asdict()
+            if verbose:
+                print(
+                    f"  roofline: compute {terms.compute_s*1e3:.2f} ms | memory "
+                    f"{terms.memory_s*1e3:.2f} ms | collective {terms.collective_s*1e3:.2f} ms "
+                    f"-> {terms.dominant}-bound; useful/counted flops = "
+                    f"{record['useful_flops_ratio']:.2f}", flush=True,
+                )
+    finally:
+        set_current_mesh(previous)
+    return record
+
+
+HDC_IMAGES, HDC_FEATURES, HDC_CLASSES = 65536, 784, 16
+
+
+def hdc_data():
+    """The dry-run's synthetic images (HDC_IMAGES x HDC_FEATURES integer
+    intensities in [0, 255] as float32) and labels in [0, HDC_CLASSES),
+    made with numpy from seed 0."""
+    rng = np.random.default_rng(0)
+    images = rng.integers(0, 256, (HDC_IMAGES, HDC_FEATURES)).astype(np.float32)
+    labels = rng.integers(0, HDC_CLASSES, HDC_IMAGES).astype(np.int32)
+    return images, labels
+
+
+def run_hdc(multi_pod: bool = False, d: int = 8192, verbose: bool = True, device=None) -> dict:
+    """The paper's own system at the dry-run's size: the uHD single-pass
+    fit of 65,536 images x 784 features into 16 classes.
+
+    JAX only compiles this fit for the production mesh.  The port runs it
+    on one device (the card by default: kernel 3, ``fit_bundle``, on its
+    histogram path, int8 table and 16 classes; the plain version on the
+    CPU) and records, beside it, the per-device bytes the production
+    mesh would hold (images and labels over the batch axes, the (784, D)
+    table and the class sums over ``model``), the fit's measured ms (the
+    median of 5 fits after a first one by CUDA events on the card; one fit
+    by the host's clock on the CPU), its one-card bound and the class
+    sums' sha256."""
+    from repro_torch.core import HDCConfig, HDCModel, hdc_model
+    from repro_torch.core.hdc_model import resolve_device
+
+    dev = resolve_device(device)
+    n, h, c = HDC_IMAGES, HDC_FEATURES, HDC_CLASSES
+    reps = 5 if dev.type == "cuda" else 1
+    mesh = production_meta_mesh(multi_pod)
+    ms = mesh.shape
+    bsz = ms.get("pod", 1) * ms["data"]
+    cfg = HDCConfig(n_features=h, n_classes=c, d=d)
+    images, labels = hdc_data()
+    model = HDCModel.create(cfg, device=dev)
+    table = model.codebooks["sobol"]
+    x, y = torch.from_numpy(images).to(dev), torch.from_numpy(labels).to(dev)
+
+    def fit():
+        return hdc_model.fit(model, x, y)
+
+    fitted = fit()  # builds the kernels on a card's first launch
+    times = []
+    for _ in range(reps):
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fitted = fit()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fitted = fit()
+            times.append((time.perf_counter() - t0) * 1e3)
+    sums = fitted.class_sums.cpu().numpy()
+    msize = ms["model"] if d % ms["model"] == 0 else 1
+    rec = {
+        "arch": "hdc_mnist", "shape": f"fit_{n}xD{d}",
+        "mesh": "multi" if multi_pod else "single",
+        "chips": mesh.size,
+        "device": str(dev),
+        "per_device_bytes": {
+            "images": n // bsz * h * 4,
+            "labels": n // bsz * 4,
+            "sobol": h * (d // msize) * table.element_size(),
+            "class_sums": c * (d // msize) * 4,
+        },
+        "fit_ms": float(np.median(times)),
+        "fit_ms_all": times,
+        "timed_by": "cuda events" if dev.type == "cuda" else "perf_counter",
+        "bound_ms": roofline.fit_bundle_bound(n, h, d, c, table.element_size()) * 1e3,
+        "class_sums_sha256": hashlib.sha256(sums.astype("<i4").tobytes()).hexdigest(),
+        "n_seen": fitted.n_examples,
+    }
+    if verbose:
+        print(
+            f"  hdc fit [{describe(mesh)} reckoned; run on {dev}]: {rec['fit_ms']:.3f} ms "
+            f"(bound {rec['bound_ms']:.3f} ms) | per device: images "
+            f"{rec['per_device_bytes']['images']/2**20:.2f} MiB, table "
+            f"{rec['per_device_bytes']['sobol']/2**10:.1f} KiB | sums "
+            f"{rec['class_sums_sha256'][:16]}", flush=True,
+        )
+    return rec
+
+
+def cells(include_skips: bool = True):
+    for arch in ARCHS:
+        for shape_name in SHAPES:
+            skip = shape_name == "long_500k" and arch not in LONG_CONTEXT_OK
+            if skip and not include_skips:
+                continue
+            yield arch, shape_name, skip
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--roofline", action="store_true")
+    ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--out", default=str(ARTIFACTS))
+    ap.add_argument("--device", default=None,
+                    help="--arch hdc_mnist only: cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    out_dir = Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    meshes = [False, True] if args.both_meshes else [args.multi_pod]
+
+    todo: list[tuple[str, str, bool]] = []
+    if args.arch == "hdc_mnist":
+        for mp in meshes:
+            rec = run_hdc(multi_pod=mp, device=args.device)
+            path = out_dir / f"hdc_mnist__fit__{rec['mesh']}.json"
+            path.write_text(json.dumps(rec, indent=1))
+        return 0
+    if args.all:
+        todo = list(cells())
+    else:
+        if not (args.arch and args.shape):
+            ap.error("--arch and --shape (or --all)")
+        skip = args.shape == "long_500k" and args.arch not in LONG_CONTEXT_OK
+        todo = [(args.arch, args.shape, skip)]
+
+    failures = 0
+    for arch, shape_name, skip in todo:
+        for mp in meshes:
+            mesh_name = "multi" if mp else "single"
+            tag = f"{arch} x {shape_name} [{mesh_name}]"
+            path = out_dir / f"{arch}__{shape_name}__{mesh_name}.json"
+            if args.skip_existing and path.exists():
+                rec = json.loads(path.read_text())
+                if "skipped" in rec or "memory" in rec and (not args.roofline or "terms" in rec):
+                    print(f"SKIP (exists) {tag}")
+                    continue
+            if skip:
+                print(f"SKIP {tag}: long_500k needs sub-quadratic attention "
+                      f"(pure full-attention arch; see DESIGN.md)")
+                path.write_text(json.dumps({
+                    "arch": arch, "shape": shape_name, "mesh": mesh_name,
+                    "skipped": "full-attention arch at 500k context",
+                }, indent=1))
+                continue
+            print(f"RUN  {tag}", flush=True)
+            try:
+                rec = run_cell(arch, shape_name, multi_pod=mp, do_roofline=args.roofline)
+                path.write_text(json.dumps(rec, indent=1))
+            except Exception:
+                failures += 1
+                print(f"FAIL {tag}")
+                traceback.print_exc()
+    print(f"\ndone; failures={failures}")
+    return 1 if failures else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -240,7 +240,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "assert {'repro_torch.launch.serve', 'repro_torch.models.transformer',\n"
         "        'repro_torch.configs.qwen3_0_6b', 'repro_torch.obs.aggregator',\n"
         "        'repro_torch.launch.train', 'repro_torch.training.step', 'repro_torch.optim.adamw',\n"
-        "        'repro_torch.data.tokens', 'repro_torch.distributed.compress'} <= set(mods), mods\n"
+        "        'repro_torch.data.tokens', 'repro_torch.distributed.compress',\n"
+        "        'repro_torch.launch.dryrun', 'repro_torch.launch.specs',\n"
+        "        'repro_torch.analysis.roofline', 'repro_torch.examples.quickstart'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'repro' or m.startswith('repro.'))\n"
         "assert not bad, bad\n"

@@ -1,0 +1,190 @@
+"""The port's dry-run (``repro_torch.launch.{specs, dryrun}``,
+``repro_torch.analysis.roofline``) against the JAX package's, on nine
+smoke cells over a (2, 2, 2) ``pod x data x model`` mesh, with JAX
+compiling the same cells in subprocesses with 8 host devices.
+
+* The per-device argument bytes equal XLA's
+  ``memory_analysis().argument_size_in_bytes``.  One difference is
+  named: ``jax.jit`` prunes the arguments a step does not read
+  (``keep_unused=False``), and XLA counts only those it keeps, where the
+  specs count every input.
+* The counted flops and bytes hold to XLA's ``cost_analysis()`` of the
+  same cell compiled with every loop unrolled (``scan_layers=False,
+  unroll_loops=True, grad_accum=1``: XLA counts a ``while`` body once,
+  and the unrolled attention skips the causally dead blocks as the
+  port's does).  The prefill cells run their attention in 8,192-wide
+  blocks on both sides, so that XLA compiles 10 block pairs a layer and
+  not 1,056; the smoke configs are those of the other cells.
+* ``cells()`` equals JAX's list.
+
+The flop counts on meta against CPU tensors and ``run_hdc`` are in
+``test_torch_dryrun_hdc.py``, ``main`` and the roofline terms in
+``test_torch_dryrun_main.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+
+#: (arch, shape) cells of the smoke configs compared with XLA
+CELLS = [
+    ("qwen3-0.6b", "train_4k"),
+    ("qwen3-0.6b", "prefill_32k"),
+    ("qwen3-0.6b", "decode_32k"),
+    ("olmoe-1b-7b", "train_4k"),
+    ("olmoe-1b-7b", "decode_32k"),
+    ("recurrentgemma-2b", "decode_32k"),
+    ("xlstm-1.3b", "long_500k"),
+    ("llama-3.2-vision-90b", "prefill_32k"),
+    ("musicgen-medium", "decode_32k"),
+]
+#: inputs a cell's step does not read, which jax.jit prunes before XLA counts
+#: the arguments: musicgen-medium takes embeddings, so its decode step reads
+#: neither the token embedding table nor the tokens
+UNREAD = {("musicgen-medium", "decode_32k"): (("params", "embed"), ("tokens",))}
+
+
+def meta_mesh(shape, axes):
+    """A mesh whose every cell is the ``meta`` device."""
+    from repro_torch.distributed.sharding import Mesh
+
+    return Mesh(np.array([torch.device("meta")] * int(np.prod(shape)), dtype=object).reshape(shape),
+                axes)
+
+
+#: the attention blocks of the prefill cells in the cost comparison (see the docstring)
+PREFILL_BLOCK = 8192
+
+
+def _unrolled(cfg, shape_name):
+    """A cell's config as the cost comparison runs it on both sides."""
+    import dataclasses
+
+    kw = dict(attn_block_q=PREFILL_BLOCK, attn_block_kv=PREFILL_BLOCK) if "prefill" in shape_name else {}
+    return dataclasses.replace(cfg, scan_layers=False, unroll_loops=True, grad_accum=1, **kw)
+
+
+_JAX_PRELUDE = f"""
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import dataclasses, json
+from repro.launch import dryrun
+from repro.configs import get_smoke_config
+from repro.distributed.sharding import set_current_mesh
+from repro.launch.mesh import _make_mesh
+from repro.launch.specs import input_specs_for
+mesh = _make_mesh((2, 2, 2), ("pod", "data", "model"))
+set_current_mesh(mesh)
+def compiled(cfg, name):
+    cfg, shape, rules, inputs = input_specs_for(cfg, name, mesh)
+    with mesh:
+        return dryrun._lower(cfg, shape, inputs).compile()
+out = {{}}
+"""
+#: XLA's argument bytes per cell of the smoke configs, and JAX's ``cells()``
+_JAX_ARGS = f"""
+for arch, name in {CELLS!r}:
+    out[arch + " " + name] = compiled(get_smoke_config(arch), name).memory_analysis().argument_size_in_bytes
+print("RESULT", json.dumps({{"args": out, "cells": list(dryrun.cells())}}))
+"""
+#: XLA's flops and bytes accessed per cell, every loop unrolled (``_unrolled``)
+_JAX_COSTS = f"""
+for arch, name in {CELLS!r}:
+    kw = dict(attn_block_q={PREFILL_BLOCK}, attn_block_kv={PREFILL_BLOCK}) if "prefill" in name else {{}}
+    cfg = dataclasses.replace(get_smoke_config(arch), scan_layers=False, unroll_loops=True,
+                              grad_accum=1, **kw)
+    ca = compiled(cfg, name).cost_analysis()
+    out[arch + " " + name] = {{"flops": ca["flops"], "bytes": ca["bytes accessed"]}}
+print("RESULT", json.dumps({{"costs": out}}))
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_side():
+    """XLA's numbers of the nine cells and JAX's ``cells()``, from two
+    processes with 8 host devices run side by side (the dry-run module
+    forces its own device count at import, so it is imported there and
+    not here)."""
+    env = {"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    procs = [subprocess.Popen([sys.executable, "-c", _JAX_PRELUDE + body], env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for body in (_JAX_ARGS, _JAX_COSTS)]
+    out = {}
+    for proc in procs:
+        stdout, stderr = proc.communicate(timeout=600)
+        line = [x for x in stdout.splitlines() if x.startswith("RESULT ")]
+        assert line, stderr[-3000:]
+        out.update(json.loads(line[0][len("RESULT "):]))
+    return out
+
+
+def _pick(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+@pytest.mark.parametrize("arch,shape_name", CELLS)
+def test_per_device_argument_bytes_equal_xla_on_a_2x2x2_mesh(jax_side, arch, shape_name):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import specs
+
+    mesh = meta_mesh((2, 2, 2), ("pod", "data", "model"))
+    _, _, _, inputs = specs.input_specs_for(get_smoke_config(arch), shape_name, mesh)
+    assert all(t.device.type == "meta" and t.sharding.mesh is mesh
+               for t in specs.tensors(inputs))
+    ours = specs.per_device_bytes(inputs)
+    unread = sum(specs.per_device_bytes(_pick(inputs, p))
+                 for p in UNREAD.get((arch, shape_name), ()))
+    assert ours - unread == jax_side["args"][f"{arch} {shape_name}"]
+
+
+def test_cells_equal_jax(jax_side):
+    from repro_torch.launch import dryrun
+
+    assert [list(c) for c in dryrun.cells()] == jax_side["cells"]
+    assert len(jax_side["cells"]) == 40
+    assert [list(c[:2]) for c in dryrun.cells(include_skips=False)] == [
+        c[:2] for c in jax_side["cells"] if not c[2]]
+
+
+#: the stated bounds of the port's count over XLA's, by shape kind (measured
+#: on these cells with jax 0.9.0: flops 0.69-0.89 for train and prefill,
+#: 0.19-0.52 for decode; bytes 0.68-1.64).  FlopCounterMode counts the
+#: matmuls and attention, a subset of the ops XLA counts, so its flops are at
+#: most XLA's; they are most of XLA's where matmuls dominate (train,
+#: prefill), and a smaller share of a decode step, whose softmax and cache
+#: update over 32k positions XLA counts and the counter does not.  The
+#: eager count reads and writes every intermediate that XLA's fusions keep
+#: on chip, and XLA counts each fusion's operands in full where the eager
+#: ops touch less of them, so the bytes lie within a factor of 2 of XLA's
+#: either way.
+FLOPS_RATIO = {"train": (0.65, 1.0), "prefill": (0.65, 1.0), "decode": (0.15, 1.0)}
+BYTES_RATIO = (0.5, 2.0)
+
+
+@pytest.mark.parametrize("arch,shape_name", CELLS)
+def test_counted_flops_and_bytes_hold_to_xla_with_every_loop_unrolled(jax_side, arch,
+                                                                       shape_name):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun, specs
+
+    mesh = meta_mesh((2, 2, 2), ("pod", "data", "model"))
+    cfg, shape, _, inputs = specs.input_specs_for(
+        _unrolled(get_smoke_config(arch), shape_name), shape_name, mesh)
+    counted = dryrun.count_step(cfg, shape, inputs)
+    xla = jax_side["costs"][f"{arch} {shape_name}"]
+    lo, hi = FLOPS_RATIO[shape.kind]
+    flops = counted["flops"] / mesh.size / xla["flops"]
+    assert lo <= flops <= hi, f"counted flops are {flops:.3f} of XLA's"
+    nbytes = counted["bytes"] / mesh.size / xla["bytes"]
+    assert BYTES_RATIO[0] <= nbytes <= BYTES_RATIO[1], f"counted bytes are {nbytes:.3f} of XLA's"
