@@ -109,15 +109,24 @@ Phases, each printed as one JSON object per line:
    share, mfu, peak memory; a 7.15 GB non-blocking checkpoint of the trained
    state, restored bit for bit; a SIGTERM'd smoke run resumed from its last
    completed step (``lm_train_phase``);
-16. examples: the nine ``repro_torch.examples`` on the card at their own sizes
+16. lm_mesh: the LM launchers one process a card under ``python -m
+   torch.distributed.run --nproc-per-node N`` (N = min(cards, 4), NCCL) at
+   qwen3-0.6b's full width: ``launch.train`` for 5 steps and ``launch.serve``
+   at its defaults, every leaf a ``DTensor`` (on one card too), the losses held
+   to lm_train's at the same seed and the tokens to the one-device ``Server``'s
+   off near-ties; step ms, tokens/s and peak memory per rank
+   (``lm_mesh_phase``);
+17. examples: the nine ``repro_torch.examples`` on the card at their own sizes
    (``train_lm_e2e --preset 100m --steps 30``), launches counted a path each, their
    printed accuracies, labels and counts held against the JAX scripts' lines kept
    below (an accuracy of the cosine examples up to JAX's float32 near-ties), the
    LM examples launching none of the eight kernels, the 100m preset's loss
    falling; each example's seconds;
-17. dryrun: ``repro_torch.launch.dryrun.run_cell`` on the production mesh of 256
+18. dryrun: ``repro_torch.launch.dryrun.run_cell`` on the production mesh of 256
    ``meta`` devices for qwen3-0.6b x train_4k and olmoe-1b-7b x decode_32k (the
-   seconds, counted flops, per-device argument bytes, roofline terms), and
+   seconds, counted flops, per-device argument bytes, roofline terms; qwen3's
+   collective bytes by kind, counted from its sharded step over a 256-rank
+   ``fake`` group, and the host seconds of that count), and
    ``run_hdc()``: the 65,536 x 784 fit at D = 8192 on the card through kernel 3,
    its ms by CUDA events beside its bound, its class sums against the JAX
    package's checksum.
@@ -2536,6 +2545,7 @@ def lm_train_phase(torch, ops, smi: str, dev, cfg) -> dict:
         "max_memory_allocated": peak, "losses": losses, "launches": launches, "nvidia_smi": smi,
     }
     emit("lm_train", **trainer)
+    LM_REF["train_losses"] = list(losses)
     first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
     if rc != 0 or not np.isfinite(losses).all() or not last5 < first5:
         raise AssertionError(f"the full-width trainer failed: rc {rc}, first {first5}, last {last5}")
@@ -2575,6 +2585,139 @@ def lm_train_phase(torch, ops, smi: str, dev, cfg) -> dict:
         "max_memory_allocated")}, "checkpoint": ckpt, "resume_seconds": resume["seconds"]}
     emit("lm_train_phase", **out)
     return launches
+
+
+# What the one-device LM phases leave for lm_mesh_phase to hold the sharded
+# launchers to: the full-width trainer's losses at seed 0 (lm_train_phase).
+LM_REF: dict = {}
+LM_MESH_STEPS = 5
+# The sharded trainer's bf16 losses against the one-device trainer's at the same
+# seed, step by step: 2.8e-4 apart on one card (the one-hot loss form and the
+# DTensor dispatch order the same bf16 products otherwise), and the band leaves
+# room for the reduction order over several cards; the served tokens are held
+# off near-ties as lm_serve holds the card to the CPU (a row may part only
+# where the one-device top-2 margin is within 2 * LM_BF16_BOUND).
+LM_MESH_LOSS_BAND = 0.01
+
+
+def _lm_mesh_run(module: str, args: list[str], n: int, out: Path, timeout: int = 600):
+    """``python -m torch.distributed.run --standalone --nproc-per-node n -m
+    <module> <args> --metrics-out <out>``; each rank's metrics record, and
+    rank 0's standard output."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", "-m", module, *args, "--metrics-out", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout, cwd=ROOT)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{module} on {n} processes exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    recs = [json.loads(Path(f"{out}.rank{r}.json").read_text()) for r in range(n)]
+    return recs, proc.stdout, seconds
+
+
+def _lm_greedy_margins(torch, np, cfg, dev, prompts, gen: int):
+    """The one-device ``Server``'s greedy tokens on `dev` (init_params(seed=0))
+    and each step's top-2 logit margin."""
+    from repro_torch.launch.serve import Server, ServerConfig
+    from repro_torch.models import params as pmod
+
+    server = Server(cfg, pmod.init_params(cfg, 0, dev), len(prompts), ServerConfig())
+    logits, state = server._prefill(prompts)
+    toks, margins = [], []
+    for i in range(gen):
+        if i:
+            logits, state = server._decode(state, toks[-1][:, None])
+        top = torch.topk(logits.float(), 2, dim=-1).values
+        margins.append((top[:, 0] - top[:, 1]).cpu().numpy())
+        toks.append(torch.argmax(logits, -1).to(torch.int32))
+    out = torch.stack(toks, 1).cpu().numpy(), np.stack(margins, 1)
+    del server
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_phase(torch, np, smi: str, dev, cfg) -> dict:
+    """The LM paths laid out over the cards, one process a card
+    (``python -m torch.distributed.run --standalone --nproc-per-node N``, N =
+    min(cards, 4), NCCL), at full width (`cfg`: qwen3-0.6b):
+
+    * ``launch.train`` at the JAX launcher's defaults (batch 8 x 256, lr 3e-4,
+      warmup 20, seed 0) for LM_MESH_STEPS steps: every leaf of params and
+      AdamW moments on every rank is a ``DTensor`` (on one card too: the
+      group is up, so the DTensor path is the one taken), each step's loss
+      within LM_MESH_LOSS_BAND of the one-device trainer's (lm_train_phase,
+      same seed; warmup keeps the two schedules equal), step ms p50 by CUDA
+      events, tokens/s over the global batch, peak memory per rank;
+    * ``launch.serve`` at its defaults (batch 4, prompt 32, gen 16, greedy):
+      the weights ``DTensor``s, every rank's tokens those of rank 0, and
+      rank 0's equal to the one-device ``Server``'s on the card wherever the
+      one-device top-2 margin exceeds 2 * LM_BF16_BOUND (a row may part only
+      at a near-tie, and is not held after it); seconds, tokens/s and the
+      one-device top-2 margin of every step.
+    The HDC kernels are not on these paths (the processes load none)."""
+    t_phase = time.perf_counter()
+    n = min(torch.cuda.device_count(), 4)
+    d = fresh_dir("lm_mesh")
+    ref = LM_REF["train_losses"][:LM_MESH_STEPS]
+
+    recs, out, seconds = _lm_mesh_run(
+        "repro_torch.launch.train", ["--arch", cfg.name, "--steps", str(LM_MESH_STEPS),
+                                     "--log-every", "1"], n, d / "train")
+    b, s = recs[0]["batch"], recs[0]["seq"]
+    leaves = recs[0]["leaves"]
+    not_sharded = [k for r in recs for k, v in r["leaves"].items() if v["type"] != "DTensor"]
+    diffs = [abs(a - w) for a, w in zip(recs[0]["losses"], ref, strict=True)]
+    step_ms = [float(np.percentile(r["step_ms"], 50)) for r in recs]
+    train = {
+        "n": n, "mesh": recs[0]["mesh"], "batch": b, "seq": s, "steps": LM_MESH_STEPS,
+        "seconds": seconds, "losses": recs[0]["losses"], "one_device_losses": ref,
+        "max_loss_diff": max(diffs), "band": LM_MESH_LOSS_BAND,
+        "losses_equal_across_ranks": all(r["losses"] == recs[0]["losses"] for r in recs),
+        "step_ms_p50_per_rank": step_ms, "tokens_per_s": b * s / (max(step_ms) / 1e3),
+        "max_memory_allocated_per_rank": [r["max_memory_allocated"] for r in recs],
+        "leaf_types": sorted({v["type"] for v in leaves.values()}),
+        "placements": {k: v["placements"] for k, v in leaves.items()},
+        "not_dtensor": not_sharded, "stdout_tail": out.splitlines()[-3:], "nvidia_smi": smi,
+    }
+    emit("lm_mesh_train", **train)
+    if not (not not_sharded and max(diffs) <= LM_MESH_LOSS_BAND
+            and train["losses_equal_across_ranks"] and np.isfinite(recs[0]["losses"]).all()):
+        raise AssertionError(f"the sharded trainer failed its checks: {train}")
+
+    recs, out, seconds = _lm_mesh_run("repro_torch.launch.serve", ["--arch", cfg.name], n,
+                                      d / "serve")
+    r0 = recs[0]
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (r0["batch"], r0["prompt_len"]),
+                                                dtype=np.int32)
+    want, margins = _lm_greedy_margins(torch, np, cfg, dev, prompts, r0["gen"])
+    got = np.asarray(r0["tokens"])
+    parted = {}
+    for row in range(len(want)):
+        diff = np.flatnonzero(got[row] != want[row])
+        if len(diff):
+            parted[row] = {"step": int(diff[0]), "margin": float(margins[row, diff[0]])}
+    serve = {
+        "n": n, "mesh": r0["mesh"], "seconds": seconds, "generate_s": r0["seconds"],
+        "tokens_per_s": r0["tokens_per_s"], "tokens": r0["tokens"], "one_device": want.tolist(),
+        "rows_parted": parted, "near_tie": 2 * LM_BF16_BOUND,
+        "one_device_margins": np.round(margins, 4).tolist(),
+        "tokens_equal_across_ranks": all(r["tokens"] == r0["tokens"] for r in recs),
+        "leaf_types": sorted({v["type"] for v in r0["leaves"].values()}),
+        "max_memory_allocated_per_rank": [r["max_memory_allocated"] for r in recs],
+        "stdout_tail": out.splitlines()[-2:], "nvidia_smi": smi,
+    }
+    emit("lm_mesh_serve", **serve)
+    if not (serve["leaf_types"] == ["DTensor"] and serve["tokens_equal_across_ranks"]
+            and all(p["margin"] <= 2 * LM_BF16_BOUND for p in parted.values())):
+        raise AssertionError(f"the sharded server failed its checks: {serve}")
+    emit("lm_mesh_phase", seconds=time.perf_counter() - t_phase, n=n)
+    return {k: 0 for k in KERNELS}
 
 
 # The JAX scripts' printed lines that the port's examples must print on the card
@@ -2800,9 +2943,12 @@ def dryrun_phase(torch, ops, smi: str) -> dict[str, dict]:
     """``repro_torch.launch.dryrun``: ``run_cell`` on two cells of the
     production mesh over ``meta`` (qwen3-0.6b x train_4k, olmoe-1b-7b x
     decode_32k: seconds, counted flops, per-device argument bytes, the
-    roofline terms), then ``run_hdc()`` at D = 8192 on the card (kernel 3 on
+    roofline terms; qwen3-0.6b's collective bytes by kind from its sharded
+    step over the 256-rank ``fake`` group, ``collective_s``, and the host
+    seconds the count costs, ``coll_s``; olmoe's 0 with its note), then ``run_hdc()`` at D = 8192 on the card (kernel 3 on
     65,536 x 784 images, 16 classes; launches counted): its fit ms by CUDA
     events, its bound, and its class sums against JAX_DRYRUN_HDC_SHA256."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
 
     t_phase = time.perf_counter()
@@ -2815,10 +2961,17 @@ def dryrun_phase(torch, ops, smi: str) -> dict[str, dict]:
             "flops_global": rec["raw"]["flops_global"], "model_flops": rec["model_flops"],
             "argument_bytes": rec["memory"]["argument_bytes"],
             "peak_bytes_est": rec["memory"]["peak_bytes_est"], "terms": rec["terms"],
+            **{k: rec["raw"][k] for k in ("coll_bytes", "coll_by_type", "coll_counts", "coll_s",
+                                          "coll_note")},
+            "collective_s": rec["terms"]["collective_s"],
         }
         emit("dryrun_cell", arch=arch, shape=shape, **cells[f"{arch} x {shape}"])
         if not (rec["raw"]["flops_global"] > 0 and rec["memory"]["argument_bytes"] > 0):
             raise AssertionError(f"the dry-run of {arch} x {shape} counted nothing")
+        counted = dryrun.coll_note(get_config(arch)) is None
+        if counted != (rec["raw"]["coll_bytes"] > 0):
+            raise AssertionError(f"the dry-run of {arch} x {shape} has collective bytes "
+                                 f"{rec['raw']['coll_bytes']}: {rec['raw']['coll_note']}")
     t0 = time.perf_counter()
     rec, launches = path_launches(ops, "dryrun_hdc", ("fit_bundle",),
                                   lambda: dryrun.run_hdc(d=8192, verbose=False),
@@ -2833,7 +2986,6 @@ def dryrun_phase(torch, ops, smi: str) -> dict[str, dict]:
         raise AssertionError("run_hdc's class sums differ from the JAX package's")
     emit("dryrun_phase", seconds=time.perf_counter() - t_phase)
     return {"dryrun_hdc": launches}
-
 
 
 def main() -> int:
@@ -2946,6 +3098,9 @@ def main() -> int:
 
     by_path["lm_serve"] = lm_serve_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
     by_path["lm_train"] = lm_train_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
+    import numpy as np
+
+    by_path["lm_mesh"] = lm_mesh_phase(torch, np, smi, dev, get_config("qwen3-0.6b"))
     by_path.update(examples_phase(torch, ops))
     by_path.update(dryrun_phase(torch, ops, smi))
 

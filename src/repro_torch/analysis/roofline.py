@@ -21,15 +21,16 @@ the HDC kernels (``chip_smoke.py`` reads them from here):
   * ``INT8_TC_OPS_PER_S``: the int8 tensor cores' dense rate (the same
     data sheet); a multiply and an add count as 2 ops.
 
-The JAX package adds a third term, the collective bytes of the step,
-parsed from XLA's partitioned HLO (``collective_bytes(hlo_text)``).  The
-port compiles no HLO, and a reckoning from the sharding specs did not
-come close to what XLA moves (held against XLA's programs of nine smoke
-cells on a (2, 2, 2) mesh, it missed the MoE's all-to-all and the
-RG-LRU's all-gather, and counted the tensor-parallel all-reduces in
-another dtype and number).  So the port's dry-run keeps the collective
-term at 0 and says so in each record (ROADMAP §3); its bounds are those
-of one card's compute and memory.
+The JAX package reads the third term, the collective bytes of the step,
+from XLA's partitioned HLO (``collective_bytes(hlo_text)``).  The port
+compiles no HLO; its dry-run counts the collectives its own sharded step
+sends instead (``launch.dryrun.count_collectives``): the step runs on
+``DTensor``s over the cell's mesh under the ``fake`` process-group
+backend, and every collective it issues, backward included, is summed by
+its operand bytes under JAX's keys (:data:`COLLECTIVE_OPS`).  That
+covers the archs whose blocks the port lays out over a mesh (the dense
+self-attention ones, slice 10); the others keep the term at 0 and say
+why in each record.
 """
 
 from __future__ import annotations
@@ -44,6 +45,12 @@ LINK_BW = 450e9  # bytes/s of NVLink 4, one direction
 INT32_OPS_PER_S = 67e12 / 4
 POPC_PER_S = INT32_OPS_PER_S * 16 / 64
 INT8_TC_OPS_PER_S = 1979e12
+
+#: the collective kinds of JAX's records (``coll_by_type``'s keys)
+COLLECTIVE_OPS = (
+    "all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+    "collective-permute",
+)
 
 
 def _axes_size(entry, mesh_shape: dict[str, int]) -> int:
@@ -145,16 +152,19 @@ def model_flops(cfg, shape, n_chips: int) -> float:
     return 2.0 * n * shape.global_batch  # decode: one token per sequence
 
 
-def combine_unrolled(u1: dict, u2: dict, n_groups: int, tail: dict | None, full: dict):
+def combine_unrolled(u1: dict, u2: dict, n_groups: int, tail: dict | None, full: dict,
+                     keys=("flops", "bytes", "coll_bytes")):
     """Reconstruct loop-corrected totals from the unrolled variants.
 
-    u1/u2/tail/full are dicts with keys flops, bytes, coll_bytes
-    (per-device).  Returns the corrected totals dict.  The port's dry-run
-    runs every layer eagerly, so its counts need no correction; this is
-    kept for records made from per-period variants.
+    u1/u2/tail/full are dicts with the `keys` (per-device; by default
+    flops, bytes, coll_bytes): u1 and u2 of the step at one and two layer
+    groups, tail at one group and the tail.  Returns the corrected totals
+    dict.  The port's dry-run counts flops and bytes with every layer run
+    eagerly, so those need no correction; its collective count runs the
+    sharded step at one and two groups and extrapolates here.
     """
     out = {}
-    for k in ("flops", "bytes", "coll_bytes"):
+    for k in keys:
         body = max(u2[k] - u1[k], 0.0)
         outside = max(u1[k] - body, 0.0)
         # tail variant is unrolled (period + tail) layers: outside+body+tail
@@ -162,5 +172,5 @@ def combine_unrolled(u1: dict, u2: dict, n_groups: int, tail: dict | None, full:
         out[k] = outside + n_groups * body + tail_cost
         out[f"{k}_body"] = body
         out[f"{k}_outside"] = outside
-    out["raw_full"] = {k: full.get(k) for k in ("flops", "bytes", "coll_bytes")}
+    out["raw_full"] = {k: full.get(k) for k in keys}
     return out

@@ -29,6 +29,19 @@ bfloat16 leaves are stored as JAX stores them: the bits as ``uint16``,
 ``"dtype": "bfloat16"`` in the manifest.  ``install_sigterm_handler``
 flushes a final checkpoint on SIGTERM and exits 0 (the preemption
 contract), holding the signal while a step updates state in place.
+
+Under a process group (one process a card, the LM path on a mesh) the
+tree's ``DTensor`` leaves are gathered whole (``full_tensor()``), every
+rank taking part leaf by leaf in the same sorted-key order; rank 0 alone
+copies each gathered leaf to host memory and writes, and the other ranks
+free theirs at once (one host copy of the tree, on rank 0).  The files
+are byte for byte those of a one-device save of the same tree.  A
+non-blocking save gathers before it returns; a blocking save and
+``wait()`` end on a barrier, so that every rank sees the published
+step.  ``restore`` lays each leaf out as the matching leaf
+of ``like`` (its ``DTensor`` placements).  The SIGTERM handler then
+holds every signal to the end of the step and all-reduces the stop flag
+there, so every rank saves and stops at the same step.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.tree import tree_unflatten
 
 Tree = Any
@@ -77,6 +91,24 @@ def _shard_files(meta: dict) -> list[str]:
     return [f"{meta['file']}.s{i:03d}.npy" for i in range(meta["shards"])]
 
 
+def _group():
+    """The default process group's module, or None when no group is up."""
+    import torch.distributed as dist
+
+    return dist if dist.is_available() and dist.is_initialized() else None
+
+
+def _rank() -> int:
+    dist = _group()
+    return dist.get_rank() if dist else 0
+
+
+def _whole(leaf):
+    """`leaf`, or where it is a ``DTensor`` the whole tensor gathered from
+    its shards (a collective every rank takes part in)."""
+    return leaf.detach().full_tensor() if is_dtensor(leaf) else leaf
+
+
 def _host(leaf) -> tuple[np.ndarray, str]:
     """A host copy of `leaf` that no later in-place update reaches, and its
     logical dtype; a bfloat16 tensor becomes its bits as uint16."""
@@ -105,6 +137,7 @@ class CheckpointManager:
         self.keep_n = keep_n
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._unsynced = False  # a save under a group that no barrier has closed
 
     # -- write -----------------------------------------------------------
 
@@ -112,13 +145,23 @@ class CheckpointManager:
              extra: dict | None = None) -> None:
         """Checkpoint `tree` at `step` atomically, then prune old steps.
         The tree is copied to host memory before this returns; with
-        ``blocking=False`` the files are written on a background thread."""
+        ``blocking=False`` the files are written on a background thread.
+        Under a process group every rank calls this with its shards, and
+        rank 0 writes."""
         self.wait()  # one in-flight save at a time
-        host = [(key, *_host(leaf)) for key, leaf in _flatten(tree)]
+        writer = _rank() == 0
+        host = []
+        for key, leaf in _flatten(tree):
+            whole = _whole(leaf)  # every rank gathers, leaf by leaf in the same order
+            if writer:  # the others drop the gathered leaf at once: no host copy
+                host.append((key, *_host(whole)))
+            del whole
+        self._unsynced = _group() is not None
 
         def write():
             try:
-                self._write(step, host, extra or {})
+                if writer:
+                    self._write(step, host, extra or {})
             except BaseException as e:  # surfaced on the next wait()
                 self._error = e
 
@@ -130,10 +173,15 @@ class CheckpointManager:
             self._thread.start()
 
     def wait(self) -> None:
-        """Wait for the save in flight; raise its error, if it had one."""
+        """Wait for the save in flight; raise its error, if it had one.
+        Under a process group the ranks then meet at a barrier, so that
+        the step rank 0 wrote is there for every rank."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._unsynced:
+            self._unsynced = False
+            _group().barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -293,7 +341,9 @@ class CheckpointManager:
     def restore(self, step: int, like: Tree) -> Tree:
         """Numpy leaves of `step` in the structure of `like`, whose leaves
         are shapes (tuples), arrays or tensors; shapes are checked.  A
-        bfloat16 leaf comes back as a ``torch.bfloat16`` tensor."""
+        bfloat16 leaf comes back as a ``torch.bfloat16`` tensor, and where
+        `like`'s leaf is a ``DTensor`` the leaf comes back laid out as it
+        (each rank keeps its shards of the whole array it read)."""
         d = self.root / f"step_{step:09d}"
         by_key = {m["key"]: m for m in self._manifest(step)["leaves"]}
         leaves = []
@@ -310,6 +360,12 @@ class CheckpointManager:
             want = tuple(leaf) if isinstance(leaf, tuple) else tuple(np.shape(leaf))
             if tuple(arr.shape) != want:
                 raise ValueError(f"{key}: checkpoint shape {arr.shape} != {want}")
+            if is_dtensor(leaf):
+                from torch.distributed.tensor import distribute_tensor
+
+                local = torch.as_tensor(arr).to(leaf.to_local().device)
+                arr = distribute_tensor(local, leaf.device_mesh, leaf.placements,
+                                        src_data_rank=None)
             leaves.append(arr)
         return tree_unflatten(like, leaves)
 
@@ -324,12 +380,18 @@ class CheckpointManager:
 class SigtermHandler:
     """SIGTERM -> ``save_fn()`` then ``SystemExit(0)``.  A SIGTERM that
     arrives inside :meth:`hold` is served when the block ends (not if it
-    raises): the state the block updates in place is saved whole."""
+    raises): the state the block updates in place is saved whole.
+
+    Under a process group a SIGTERM is always served at the end of a
+    :meth:`hold` block, after an all-reduce (max) of every rank's "stop"
+    flag there: a rank that got no signal, or got it a step later, stops
+    at the same step, and every rank takes part in the save's gathers."""
 
     def __init__(self, save_fn: Callable[[], None]):
         self.save_fn = save_fn
         self._held = False
         self._pending = False
+        self._flushing = False
         self._previous = signal.signal(signal.SIGTERM, self._on_signal)
 
     def close(self) -> None:
@@ -337,14 +399,28 @@ class SigtermHandler:
         signal.signal(signal.SIGTERM, self._previous)
 
     def _on_signal(self, signum, frame) -> None:
-        if self._held:
+        if self._flushing:
+            return  # a second SIGTERM (torchrun forwards its own) during the save
+        if self._held or _group() is not None:
             self._pending = True
             return
         self._flush()
 
     def _flush(self) -> None:
+        self._flushing = True
         self.save_fn()
         raise SystemExit(0)
+
+    def _stop_everywhere(self) -> bool:
+        """The pending flag, all-reduced (max) over the group where one is up."""
+        dist = _group()
+        if dist is None:
+            return self._pending
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        flag = torch.tensor([int(self._pending)], dtype=torch.int32, device=dev)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     @contextlib.contextmanager
     def hold(self):
@@ -353,7 +429,7 @@ class SigtermHandler:
             yield
         finally:
             self._held = False
-        if self._pending:
+        if self._stop_everywhere():
             self._flush()
 
 

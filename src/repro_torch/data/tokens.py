@@ -74,6 +74,17 @@ class TokenPipeline:
         dev = resolve_device(device)
         return {k: v.to(dev) for k, v in self.host_batch(step).items()}
 
+    def sharded_batch_at(self, step: int, mesh, rules=None) -> dict[str, torch.Tensor]:
+        """The global batch for `step` laid out on `mesh` by
+        ``rules.data_sharding`` (default ``ShardingRules()``): dim 0 over
+        the batch axes, so that on a distributed mesh each rank holds its
+        rows (every rank draws the same global batch and keeps its own)."""
+        from repro_torch.distributed.sharding import ShardingRules
+
+        rules = rules or ShardingRules()
+        return {k: rules.data_sharding(mesh, v.ndim).place(v)
+                for k, v in self.host_batch(step).items()}
+
     def host_batch_at(self, step: int, host_index: int, n_hosts: int, device=None) -> dict:
         """This host's slice of the global batch (per-host data loading)."""
         full = self.batch_at(step, device)

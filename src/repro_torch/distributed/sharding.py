@@ -5,30 +5,43 @@ rules of the HDC state (``ShardingRules.batch_axes``, ``model_mesh``,
 ``model_axis_for``, the current mesh), and the LM path's logical-axis
 rules (``TP_LOGICAL``, ``ShardingRules.param_spec`` and
 ``activation_spec``, ``tree_param_shardings``, ``abstract_params``) with
-its ``constrain`` and ``constrain_batch`` (the identity on one card).
+its ``constrain`` and ``constrain_batch``.
 
 A spec is a :class:`PartitionSpec`, a tuple with one entry a dimension
 (None, a mesh axis name, or a tuple of them), equal entry for entry to
-JAX's for the same shape, axes and mesh.  A :class:`NamedSharding`
-places a tensor on its mesh's device when every cell of the mesh is one
-device (the meshes the LM path runs on); over several distinct cards it
-raises ``NotImplementedError``, since the port has no cross-card layout
-yet (ROADMAP: "Blocked on hardware").
+JAX's for the same shape, axes and mesh.
 
-The JAX package runs its sharded paths under one controller: one
-process drives every device of a ``jax.sharding.Mesh`` through
-``shard_map``, and a ``psum`` is the only step between devices.  The
-port keeps that shape.  A :class:`Mesh` is a numpy object grid of
-``torch.device``s with axis names; one process drives every cell, and
-the sum of the per-shard int32 partials on the output device takes the
-place of the ``psum`` (exact in any order).  A device may appear more
-than once: a mesh that names ``"cpu"`` eight times runs eight shards one
-after another on the CPU, as the JAX tests' forced host devices do, and
-a mesh that names ``cuda:0`` four times does the same on one card.
+Two ways to run over a mesh, one for each family of paths:
+
+* The HDC paths keep the JAX package's single controller: one process
+  drives every device of a ``jax.sharding.Mesh`` through ``shard_map``,
+  and a ``psum`` is the only step between devices.  A :class:`Mesh` is a
+  numpy object grid of ``torch.device``s with axis names; one process
+  drives every cell, and the sum of the per-shard int32 partials on the
+  output device takes the place of the ``psum`` (exact in any order).  A
+  device may appear more than once: a mesh that names ``"cpu"`` eight
+  times runs eight shards one after another on the CPU, as the JAX
+  tests' forced host devices do, and a mesh that names ``cuda:0`` four
+  times does the same on one card.
+* The LM paths run one process a card, PyTorch's idiom, under
+  ``python -m torch.distributed.run`` (``launch.mesh.init_distributed``
+  starts the group: NCCL on ``cuda:<LOCAL_RANK>``, gloo on the CPU).
+  A mesh built there (``launch.mesh.mesh_for``) also holds the group's
+  ranks, and :meth:`Mesh.device_mesh` gives the ``DeviceMesh`` of the
+  same shape and axis names.  A :class:`NamedSharding` on such a mesh
+  places a tensor as a ``DTensor`` whose placements come from its spec
+  (:attr:`NamedSharding.placements`); :func:`constrain` redistributes a
+  ``DTensor`` as JAX's ``with_sharding_constraint`` does, and
+  :func:`mesh_ops` lets the plain tensors a model makes (positions,
+  masks) meet ``DTensor``s as replicated ones.  There is no fallback: a
+  sharding over several distinct devices without a group raises, and a
+  path that cannot be laid out raises; nothing is moved to one card or
+  replicated in silence.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -61,9 +74,14 @@ def _device(dev) -> torch.device:
 class Mesh:
     """An n-dimensional grid of devices with one name per axis (the
     counterpart of ``jax.sharding.Mesh``).  All devices are of one type,
-    ``cuda`` or ``cpu``, or ``meta`` for the dry-run's abstract mesh."""
+    ``cuda`` or ``cpu``, or ``meta`` for the dry-run's abstract mesh.
 
-    def __init__(self, devices, axis_names: tuple[str, ...]):
+    ``ranks``, where given, is a grid of process-group ranks of the same
+    shape: the rank that drives each cell (one process a card).  Such a
+    mesh has a ``DeviceMesh`` (:meth:`device_mesh`) and places tensors as
+    ``DTensor``s; its devices may repeat (every gloo rank's is ``cpu``)."""
+
+    def __init__(self, devices, axis_names: tuple[str, ...], *, ranks=None):
         grid = np.asarray(devices, dtype=object)
         axis_names = tuple(axis_names)
         if grid.ndim != len(axis_names):
@@ -82,6 +100,13 @@ class Mesh:
             raise ValueError(f"a mesh holds devices of one type, got {sorted(types)}")
         self.devices = cells
         self.axis_names = axis_names
+        if ranks is not None:
+            ranks = np.asarray(ranks, dtype=np.int64)
+            if ranks.shape != cells.shape or len(set(ranks.flat)) != ranks.size:
+                raise ValueError(f"ranks {ranks.tolist()} are not one distinct rank a cell of "
+                                 f"the {cells.shape} grid")
+        self.ranks = ranks
+        self._device_mesh = None
 
     @property
     def shape(self) -> dict[str, int]:
@@ -100,8 +125,50 @@ class Mesh:
         """The device at the given axis positions (0 on axes not named)."""
         return self.devices[tuple(index.get(a, 0) for a in self.axis_names)]
 
+    @property
+    def distributed(self) -> bool:
+        """Whether the mesh holds a process group's ranks (one process a card)."""
+        return self.ranks is not None
+
+    def local_device(self) -> torch.device:
+        """This process's cell's device: the cell of its rank on a
+        distributed mesh, else the first cell."""
+        if not self.distributed:
+            return self.devices.flat[0]
+        import torch.distributed as dist
+
+        where = np.argwhere(self.ranks == dist.get_rank())
+        if not len(where):
+            raise ValueError(f"rank {dist.get_rank()} holds no cell of {self}")
+        return self.devices[tuple(where[0])]
+
+    def device_mesh(self):
+        """The ``DeviceMesh`` of this mesh's ranks, with its shape and axis
+        names.  It needs a process group whose ranks the grid holds; a
+        ``meta`` mesh (the dry-run's) gives a ``cpu`` one, for the
+        ``fake`` backend."""
+        if not self.distributed:
+            raise ValueError(
+                f"{self} holds no process-group ranks: build it with launch.mesh.mesh_for() "
+                "in a process started by `python -m torch.distributed.run`"
+            )
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(f"{self} needs a process group: start the processes with "
+                               "`python -m torch.distributed.run` (launch.mesh.init_distributed)")
+        if self._device_mesh is None:
+            from torch.distributed.device_mesh import DeviceMesh
+
+            kind = "cuda" if self.platform == "cuda" else "cpu"
+            self._device_mesh = DeviceMesh(kind, torch.as_tensor(self.ranks),
+                                           mesh_dim_names=self.axis_names)
+        return self._device_mesh
+
     def _key(self):
-        return self.axis_names, self.devices.shape, tuple(str(d) for d in self.devices.flat)
+        ranks = None if self.ranks is None else tuple(self.ranks.flat)
+        return (self.axis_names, self.devices.shape, tuple(str(d) for d in self.devices.flat),
+                ranks)
 
     def __eq__(self, other) -> bool:
         return isinstance(other, Mesh) and self._key() == other._key()
@@ -110,7 +177,8 @@ class Mesh:
         return hash(self._key())
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]})"
+        ranks = "" if self.ranks is None else f", ranks={self.ranks.flatten().tolist()}"
+        return f"Mesh({self.shape}, {[str(d) for d in self.devices.flat]}{ranks})"
 
 
 def set_current_mesh(mesh: Mesh | None) -> None:
@@ -132,29 +200,68 @@ class PartitionSpec(tuple):
         return f"PartitionSpec{tuple.__repr__(self)}"
 
 
+def _placements(axis_names, spec) -> tuple:
+    """One placement a mesh dim for `spec` over mesh axes `axis_names`:
+    ``Shard(d)`` where the spec names the axis at tensor dim d (an entry
+    ``("pod", "data")`` shards dim d on each of those mesh dims, the first
+    the major one, as in JAX), ``Replicate()`` elsewhere."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    where: dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        names = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        order = [axis_names.index(n) for n in names if n in axis_names]
+        if order != sorted(order):
+            raise NotImplementedError(
+                f"spec entry {entry} orders mesh axes against the mesh's {axis_names}")
+        for n in names:
+            if n in where:
+                raise ValueError(f"mesh axis {n!r} named twice in {spec}")
+            where[n] = d
+    return tuple(Shard(where[a]) if a in where else Replicate() for a in axis_names)
+
+
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
-    """A spec on a mesh.  ``device`` is the one device of the mesh's cells.
-    A mesh that names one device n times is accepted (the CPU's forced
-    shards, ``cuda:0`` four times, the dry-run's ``meta`` mesh at pod
-    scale); one over several distinct devices raises."""
+    """A spec on a mesh.  On a distributed mesh (one process a card, the
+    LM path) :meth:`place` makes a ``DTensor``; otherwise ``device`` is
+    the one device of the mesh's cells: a mesh that names one device n
+    times is accepted (the CPU's forced shards, ``cuda:0`` four times, the
+    dry-run's ``meta`` mesh at pod scale), and one over several distinct
+    devices with no process group raises."""
 
     mesh: Mesh
     spec: PartitionSpec
 
     def __post_init__(self):
-        if len({str(d) for d in self.mesh.devices.flat}) > 1:
+        if not self.mesh.distributed and len({str(d) for d in self.mesh.devices.flat}) > 1:
             raise NotImplementedError(
-                f"a sharding over {self.mesh}: the port places a tensor on one device, and "
-                "a layout over several cards is blocked on hardware (ROADMAP)"
+                f"a sharding over {self.mesh}: one process places a tensor on one device; "
+                "to lay the LM path out over several cards, run one process a card under "
+                "`python -m torch.distributed.run` and build the mesh there "
+                "(launch.mesh.mesh_for)"
             )
 
     @property
     def device(self) -> torch.device:
-        return self.mesh.devices.flat[0]
+        return self.mesh.local_device()
+
+    @property
+    def placements(self) -> tuple:
+        """The ``DTensor`` placements of the spec, one a mesh dim."""
+        return _placements(self.mesh.axis_names, self.spec)
 
     def place(self, t: torch.Tensor) -> torch.Tensor:
-        return t.to(self.device)
+        """`t` (the whole, global tensor, the same on every rank) laid out by
+        this sharding: each rank keeps its own shard of it as a
+        ``DTensor`` on a distributed mesh (no collective), else `t` on the
+        mesh's device."""
+        if not self.mesh.distributed:
+            return t.to(self.device)
+        from torch.distributed.tensor import distribute_tensor
+
+        return distribute_tensor(t.to(self.device), self.mesh.device_mesh(), self.placements,
+                                 src_data_rank=None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,18 +387,103 @@ def model_axis_for(mesh: Mesh, dim: int, *, rules: ShardingRules | None = None) 
     return None
 
 
-def constrain(x: torch.Tensor, spec=None) -> torch.Tensor:
-    """The identity: the LM path's layout hint (``repro``'s
-    ``with_sharding_constraint`` under the current mesh).  Every mesh the
-    port serves an LM on lives on one card, so there is no layout to
-    constrain; the call sites keep the JAX package's places for a
-    multi-card layout to come."""
-    return x
+def is_dtensor(x) -> bool:
+    """Whether `x` is a ``DTensor`` (a leaf laid out over a process group)."""
+    if not isinstance(x, torch.Tensor) or type(x) is torch.Tensor:
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _fit_spec(shape, spec, mesh_shape: dict[str, int]) -> PartitionSpec:
+    """JAX's rule of ``constrain``: keep the axes of `spec` that the mesh
+    has and whose sizes divide the dimension, drop the rest."""
+    fixed: list[Any] = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if ax is None:
+            fixed.append(None)
+            continue
+        names = (ax,) if isinstance(ax, str) else tuple(ax)
+        names = tuple(n for n in names if n in mesh_shape)
+        if not names:
+            fixed.append(None)
+            continue
+        size = math.prod(mesh_shape[n] for n in names)
+        if dim % size == 0 and dim >= size:
+            fixed.append(names if len(names) > 1 else names[0])
+        else:
+            fixed.append(None)
+    return PartitionSpec(*fixed)
+
+
+class _MeshAxes:
+    """A ``DeviceMesh``'s axis names and sizes, read as ``param_spec``
+    reads a :class:`Mesh`."""
+
+    def __init__(self, device_mesh):
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names, device_mesh.shape))
+
+
+def constrain(x: torch.Tensor, spec: PartitionSpec) -> torch.Tensor:
+    """The LM path's layout hint (JAX's ``with_sharding_constraint`` under
+    the current mesh): a ``DTensor`` is redistributed to `spec` on its own
+    mesh, with the axes that do not divide dropped, as in JAX (so the
+    same model code runs on any device count); a plain tensor (one
+    device) is returned as it is."""
+    if not is_dtensor(x):
+        return x
+    dm = x.device_mesh
+    names = tuple(dm.mesh_dim_names)
+    fixed = _fit_spec(tuple(x.shape), spec, dict(zip(names, dm.shape)))
+    placements = _placements(names, fixed)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(dm, placements)
 
 
 def constrain_batch(x: torch.Tensor, rules: ShardingRules | None = None) -> torch.Tensor:
-    """The identity, as :func:`constrain` (dim 0 over the batch axes)."""
-    return x
+    """Shard dim 0 over the batch mesh axes (pod, data); a plain tensor is
+    returned as it is."""
+    if not is_dtensor(x):
+        return x
+    return constrain(x, (rules or ShardingRules()).activation_spec(x.ndim,
+                                                                   _MeshAxes(x.device_mesh)))
+
+
+def constrain_logical(x: torch.Tensor, axes: tuple, rules: ShardingRules | None = None):
+    """A ``DTensor`` laid out by ``rules.param_spec`` of its logical axes
+    (the decode state's ``decode_state_axes``); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    spec = (rules or ShardingRules()).param_spec(tuple(x.shape), tuple(axes),
+                                                 _MeshAxes(x.device_mesh))
+    return constrain(x, spec)
+
+
+_IMPLICIT_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def mesh_ops(*trees):
+    """Where a leaf of `trees` is a ``DTensor``, let the plain tensors the
+    model makes (positions, masks, ``arange``s) meet ``DTensor``s as
+    replicated ones (``implicit_replication``), for the block; otherwise
+    nothing.  Nested blocks keep it on until the outermost one ends."""
+    from torch.utils._pytree import tree_leaves
+
+    if _IMPLICIT_DEPTH[0] or not any(is_dtensor(t) for t in tree_leaves(list(trees))):
+        yield
+        return
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    _IMPLICIT_DEPTH[0] += 1
+    try:
+        with implicit_replication():
+            yield
+    finally:
+        _IMPLICIT_DEPTH[0] -= 1
 
 
 def tree_param_shardings(mesh: Mesh, spec_tree, axes_tree, rules: ShardingRules):

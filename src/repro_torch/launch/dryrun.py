@@ -23,12 +23,20 @@ tensors at the global shape, and records:
   * ``raw.bytes``: the bytes each op reads and writes (its tensor inputs
     and outputs; views move none), over the devices: the counterpart of
     XLA's "bytes accessed";
-  * ``raw.coll_bytes``: 0, with the reason in ``raw.coll_note``: the port
-    compiles no partitioned program whose collectives it could count, and
-    a reckoning from the sharding specs did not come close to XLA's (see
-    ``repro_torch.analysis.roofline``), so ``coll_by_type`` and
-    ``coll_counts`` are None and the terms bound one card's compute and
-    memory only;
+  * ``raw.coll_bytes``, ``coll_by_type`` and ``coll_counts``: what the
+    port's own sharded step sends (:func:`count_collectives`).  The step
+    runs once more on ``DTensor``s over the cell's mesh (one process
+    standing for rank 0 of the ``fake`` backend, ``meta`` local shards)
+    inside a ``CommDebugMode`` that also sums each collective's operand
+    bytes, under JAX's keys.  It runs at one and two layer groups (and
+    one group and the tail), and ``roofline.combine_unrolled``
+    extrapolates to full depth, as JAX's ``--roofline`` does: a
+    256-rank DTensor run of the full stack costs too much host time.
+    ``coll_s`` is that run's host seconds.  The dense self-attention
+    archs are counted (slice 10); the others keep 0 with the slice that
+    lays them out in ``raw.coll_note``.  The ``fake`` backend comes from
+    ``torch.testing._internal.distributed.fake_pg`` (present in the
+    H100 machine's torch 2.11 and in torch 2.13);
   * ``memory.argument_bytes``: each input leaf's shard under its spec,
     summed over params, optimizer state, batch and step: equal to XLA's
     ``argument_size_in_bytes`` for the same cell;
@@ -39,9 +47,10 @@ tensors at the global shape, and records:
     the run is one program over the global shape, not a partitioned one.
 
 JAX lowers unrolled variants for ``--roofline`` because XLA counts a
-``while`` body once.  The port runs every layer eagerly, so the counter
-already sees every layer, and ``--roofline`` fills ``terms`` straight
-from the counted step (``corrected`` is the raw count).
+``while`` body once.  The port runs every layer eagerly, so the flop and
+byte counters already see every layer, and ``--roofline`` fills
+``terms`` straight from the counted step (``corrected`` is the raw
+count; its collective bytes are the extrapolated ones above).
 
 This module sets no environment variable at import (JAX's first lines
 force its host device count) and needs no card: the meta run is the
@@ -55,6 +64,7 @@ Records land in ``artifacts/dryrun_torch/<arch>__<shape>__<mesh>.json``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -65,12 +75,19 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.distributed.tensor.debug import CommDebugMode
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_map
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.analysis import roofline
 from repro_torch.configs import ARCHS, get_config
-from repro_torch.distributed.sharding import get_current_mesh, set_current_mesh
+from repro_torch.distributed.sharding import (
+    Mesh,
+    NamedSharding,
+    get_current_mesh,
+    set_current_mesh,
+)
 from repro_torch.launch.mesh import describe, make_production_mesh
 from repro_torch.launch.specs import input_specs_for, per_device_bytes, tensors
 from repro_torch.models import transformer
@@ -79,9 +96,9 @@ from repro_torch.optim import OptimizerConfig
 from repro_torch.training.step import make_train_step
 
 ARTIFACTS = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun_torch"
-COLL_NOTE = ("not counted: the port compiles no partitioned program, and a reckoning from "
-             "the sharding specs did not come close to XLA's collectives; the collective "
-             "term is 0")
+COLL_NOTE = ("counted: the collectives the port's step sends on DTensors over the cell's mesh "
+             "(fake backend, meta shards), at 1 and 2 layer groups, extrapolated to full depth "
+             "(roofline.combine_unrolled); operand bytes per device")
 
 
 def production_meta_mesh(multi_pod: bool = False):
@@ -126,6 +143,156 @@ class StepCounter(TorchDispatchMode):
         for t in outs:
             self._track(t)
         return out
+
+
+def coll_note(cfg) -> str | None:
+    """None where the port lays `cfg`'s blocks out over a mesh (the dense
+    self-attention archs), else why its collectives are not counted."""
+    from repro_torch.models.transformer import mesh_slice
+
+    where = mesh_slice(cfg)
+    if where is None:
+        return None
+    return (f"not counted: {cfg.name}'s {where[1]} blocks are laid out over a mesh in slice "
+            f"{where[0]} (ROADMAP); the collective term is 0")
+
+
+#: c10d functional ops -> JAX's collective kinds
+_FUNCOL_KIND = {
+    "all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter", "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+}
+
+
+class CollectiveCounter(CommDebugMode):
+    """``CommDebugMode`` that also sums each collective's operand bytes
+    (its local input: what XLA's HLO gives a collective's operand) by
+    JAX's kind.  DTensor's all-to-all on a ``cpu`` mesh is an all-gather
+    and a chunk (gloo has none); :meth:`labelled` counts it as the
+    all-to-all a card's mesh issues, with the same operand."""
+
+    def __init__(self):
+        super().__init__()
+        self.nbytes = {k: 0 for k in roofline.COLLECTIVE_OPS}
+        self.counts = {k: 0 for k in roofline.COLLECTIVE_OPS}
+        self._label: str | None = None
+
+    @contextlib.contextmanager
+    def labelled(self):
+        import torch.distributed.tensor.placement_types as pt
+
+        orig = getattr(pt, "shard_dim_alltoall", None)
+        if orig is None:
+            yield
+            return
+
+        def alltoall(*args, **kwargs):
+            self._label = "all-to-all"
+            try:
+                return orig(*args, **kwargs)
+            finally:
+                self._label = None
+
+        pt.shard_dim_alltoall = alltoall
+        try:
+            yield
+        finally:
+            pt.shard_dim_alltoall = orig
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "").split(".")[0]
+        ns = getattr(func, "namespace", "")
+        if ns in ("_c10d_functional", "c10d_functional"):
+            if name in _FUNCOL_KIND:
+                kind = self._label or _FUNCOL_KIND[name]
+                ins = args[0] if isinstance(args[0], (list, tuple)) else [args[0]]
+                self.nbytes[kind] += sum(t.numel() * t.element_size() for t in ins)
+                self.counts[kind] += 1
+            elif any(w in name for w in ("all_", "reduce", "scatter", "gather", "permute",
+                                         "broadcast")):
+                raise NotImplementedError(f"collective {func} has no JAX kind to count it under")
+        return super().__torch_dispatch__(func, types, args, kwargs)
+
+
+@contextlib.contextmanager
+def fake_group(world_size: int):
+    """A default process group of `world_size` ranks on the ``fake``
+    backend, this process rank 0: collectives return at once and move
+    nothing, so one process runs rank 0's part of a sharded step."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("the collective count starts its own fake process group; "
+                           "a process group is already up")
+    dist.init_process_group("fake", rank=0, world_size=world_size, store=FakeStore())
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _dtensor_inputs(inputs, mesh: Mesh):
+    """The ``meta`` inputs as ``DTensor``s of their shards on `mesh` (a
+    mesh of ranks), each laid out by its ``.sharding``'s spec."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.analysis.roofline import shard_numel
+
+    def conv(t):
+        if not isinstance(t, torch.Tensor):
+            return t
+        sh = NamedSharding(mesh, t.sharding.spec)
+        spec = tuple(sh.spec) + (None,) * (t.ndim - len(sh.spec))
+        local = torch.empty([shard_numel((d,), (e,), mesh.shape) for d, e in zip(t.shape, spec)],
+                            dtype=t.dtype, device="meta")
+        return DTensor.from_local(local, mesh.device_mesh(), sh.placements, run_check=False,
+                                  shape=t.shape, stride=t.stride())
+
+    return tree_map(conv, inputs)
+
+
+def _count_variant(cfg, shape_name: str, mesh: Mesh) -> dict:
+    cfg, shape, _, inputs = input_specs_for(cfg, shape_name, mesh)
+    ranked = Mesh(mesh.devices, mesh.axis_names,
+                  ranks=np.arange(mesh.size).reshape(mesh.devices.shape))
+    counter = CollectiveCounter()
+    with counter, counter.labelled():
+        _run(cfg, shape, _dtensor_inputs(inputs, ranked))
+    out = {f"coll/{k}": float(v) for k, v in counter.nbytes.items()}
+    out.update({f"count/{k}": float(v) for k, v in counter.counts.items()})
+    return out
+
+
+def count_collectives(cfg, shape_name: str, mesh: Mesh) -> dict:
+    """The collectives of the cell's step on `mesh` (a ``meta`` mesh of
+    the cell's shape): per device, ``coll_bytes`` (operand bytes),
+    ``coll_by_type`` and ``coll_counts`` under JAX's keys, and ``coll_s``,
+    the host seconds of the count.  The step runs sharded on ``DTensor``s
+    at one and two layer groups (and one group and the tail, where there
+    is one) and is extrapolated to full depth."""
+    t0 = time.perf_counter()
+    period, tail_len = cfg.period, len(cfg.tail_pattern)
+
+    def variant(n_layers: int) -> dict:
+        return _count_variant(dataclasses.replace(cfg, n_layers=n_layers, grad_accum=1),
+                              shape_name, mesh)
+
+    with fake_group(mesh.size):
+        u1 = variant(period)
+        u2 = variant(2 * period)
+        tail = variant(period + tail_len) if tail_len else None
+    keys = tuple(u1)
+    total = roofline.combine_unrolled(u1, u2, cfg.n_groups, tail, {}, keys=keys)
+    by_type = {k: int(total[f"coll/{k}"]) for k in roofline.COLLECTIVE_OPS}
+    return {
+        "coll_bytes": float(sum(by_type.values())),
+        "coll_by_type": by_type,
+        "coll_counts": {k: int(total[f"count/{k}"]) for k in roofline.COLLECTIVE_OPS},
+        "coll_s": time.perf_counter() - t0,
+    }
 
 
 def _run(cfg, shape, inputs):
@@ -213,13 +380,17 @@ def run_cell(
             "estimate": "argument and alias bytes exact from the specs; output and temp bytes "
                         "the global run's split evenly over the devices",
         }
+        note = coll_note(cfg)
+        coll = ({"coll_bytes": 0.0, "coll_by_type": None, "coll_counts": None, "coll_s": 0.0}
+                if note else count_collectives(cfg, shape_name, mesh))
         record["raw"] = {
             "flops": counted["flops"] / n_chips,
             "bytes": counted["bytes"] / n_chips,
-            "coll_bytes": 0.0,
-            "coll_by_type": None,
-            "coll_counts": None,
-            "coll_note": COLL_NOTE,
+            "coll_bytes": coll["coll_bytes"],
+            "coll_by_type": coll["coll_by_type"],
+            "coll_counts": coll["coll_counts"],
+            "coll_note": note or COLL_NOTE,
+            "coll_s": round(coll["coll_s"], 2),
             "flops_global": counted["flops"],
             "flops_counted": "FlopCounterMode: matmuls and attention only",
         }

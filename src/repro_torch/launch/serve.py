@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-0.6b   # full width, on the card
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.serve --arch qwen3-0.6b --smoke --device cpu
 
 The torch counterpart of ``repro.launch.serve``, with its semantics:
   * one prefill (prompt -> cache) and one decode step whose cache is
@@ -23,6 +25,18 @@ every arch.
 The float32 master weights are cast to the compute dtype once, when the
 server is built (``transformer.cast_for_compute``), where the JAX
 package casts them at every use.
+
+Under ``python -m torch.distributed.run`` (one process a card; NCCL, or
+gloo with ``--device cpu``) the launcher serves on ``mesh_for()`` of the
+group's ranks, as JAX's serves on ``mesh_for()`` of every device: the
+weights are drawn whole on every rank and laid out by the sharding rules
+(``init_params(..., mesh=)``), and a ``Server`` on ``DTensor`` weights
+lays each batch of tokens out over the batch axes, gathers the logits it
+samples from (every rank samples the same token), and rank 0 prints.
+Outside torchrun the mesh is of every visible card (or the CPU with
+``--device cpu``): over several cards laying the weights out raises,
+naming ``torch.distributed.run``, as ``launch.train`` does; nothing
+serves on one card of several.
 """
 
 from __future__ import annotations
@@ -33,12 +47,19 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import prng
 from repro_torch.core.hdc_model import resolve_device
-from repro_torch.distributed.sharding import get_current_mesh, set_current_mesh
-from repro_torch.launch.mesh import mesh_for
+from repro_torch.distributed.sharding import (
+    ShardingRules,
+    constrain_batch,
+    get_current_mesh,
+    is_dtensor,
+    set_current_mesh,
+)
+from repro_torch.launch.mesh import describe, group_up, init_distributed, mesh_for
 from repro_torch.models import params as pmod, transformer
 
 
@@ -50,22 +71,38 @@ class ServerConfig:
 
 
 class Server:
-    """Static-shape batched decode server on the device of `params`."""
+    """Static-shape batched decode server on the device of `params`, or on
+    their mesh where they are ``DTensor``s (one process a card)."""
 
     def __init__(self, cfg, params, batch_slots: int, scfg: ServerConfig):
         self.cfg, self.scfg = cfg, scfg
         self.params = transformer.cast_for_compute(cfg, params)
         self.slots = batch_slots
-        self.device = params["embed"].device
+        embed = params["embed"]
+        self.mesh = embed.device_mesh if is_dtensor(embed) else None
+        self.device = embed.to_local().device if self.mesh is not None else embed.device
+
+    def _place(self, toks: torch.Tensor) -> torch.Tensor:
+        """(B, n) tokens on the server's device, or laid out over the batch
+        axes of its mesh."""
+        toks = toks.to(self.device)
+        if self.mesh is None:
+            return toks
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        return constrain_batch(distribute_tensor(toks, self.mesh, [Replicate()] * self.mesh.ndim,
+                                                 src_data_rank=None))
 
     def _prefill(self, tokens: np.ndarray):
-        batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32).to(self.device)}
+        batch = {"tokens": self._place(torch.as_tensor(tokens, dtype=torch.int32))}
         return transformer.prefill(self.cfg, self.params, batch)
 
     def _decode(self, state, toks: torch.Tensor):
-        return transformer.decode_step(self.cfg, self.params, state, toks)
+        return transformer.decode_step(self.cfg, self.params, state, self._place(toks))
 
     def _sample(self, logits: torch.Tensor, key: np.ndarray) -> torch.Tensor:
+        if is_dtensor(logits):  # every rank samples the same token from the whole logits
+            logits = logits.full_tensor()
         if self.scfg.temperature <= 0:
             return torch.argmax(logits, dim=-1).to(torch.int32)
         return prng.categorical(key, logits / self.scfg.temperature).to(torch.int32)
@@ -163,14 +200,21 @@ def main(argv=None) -> int:
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write each rank's tokens, seconds, peak memory and leaf layouts "
+                         "to <path>.rank<r>.json")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
+    started = not group_up()
+    group_dev = init_distributed(args.device)  # None outside torchrun
+    dev = group_dev or resolve_device(args.device)
+    rank0 = group_dev is None or torch.distributed.get_rank() == 0
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     previous = get_current_mesh()
-    set_current_mesh(mesh_for(devices=[dev] if dev.type == "cpu" else None))
+    mesh = mesh_for(devices=[dev] if dev.type == "cpu" and group_dev is None else None)
+    set_current_mesh(mesh)
     try:
-        params = pmod.init_params(cfg, args.seed, dev)
+        params = pmod.init_params(cfg, args.seed, mesh=mesh, rules=ShardingRules(fsdp=cfg.fsdp))
         server = Server(cfg, params, args.batch, ServerConfig(temperature=args.temperature))
         rng = np.random.default_rng(args.seed)
         prompts = rng.integers(2, cfg.vocab_size, (args.batch, args.prompt_len), dtype=np.int32)
@@ -180,8 +224,19 @@ def main(argv=None) -> int:
     finally:
         set_current_mesh(previous)
     tps = args.batch * args.gen / dt
-    print(f"generated {out.shape} tokens in {dt:.2f}s ({tps:.1f} tok/s) on {dev}")
-    print("sample:", out[0][:16].tolist())
+    if args.metrics_out:
+        from repro_torch.launch.train import leaf_layouts, write_metrics
+
+        write_metrics(args.metrics_out, dev, mesh, {
+            "arch": cfg.name, "batch": args.batch, "prompt_len": args.prompt_len,
+            "gen": args.gen, "tokens": out.tolist(), "seconds": dt, "tokens_per_s": tps,
+            "leaves": leaf_layouts(server.params)})
+    if rank0:
+        where = describe(mesh) if mesh.distributed else str(dev)
+        print(f"generated {out.shape} tokens in {dt:.2f}s ({tps:.1f} tok/s) on {where}")
+        print("sample:", out[0][:16].tolist())
+    if group_dev is not None and started:
+        torch.distributed.destroy_process_group()
     return 0
 
 

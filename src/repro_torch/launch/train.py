@@ -2,6 +2,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b   # full width, on the card
+    PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m repro_torch.launch.train --arch qwen3-0.6b --smoke --model-parallel 2 --device cpu
 
 The torch counterpart of ``repro.launch.train``, with its flags (plus
 ``--device``: the card by default, which raises without one unless
@@ -9,9 +11,13 @@ The torch counterpart of ``repro.launch.train``, with its flags (plus
 resume:
   * the mesh of the devices present (``mesh_for``; on one card or the
     CPU a (1, 1) mesh) or the production mesh (``--production``);
-    parameters are placed by the sharding rules, which hold a tree on one
-    device (a mesh of several cards raises, ROADMAP "Blocked on
-    hardware");
+    parameters and optimizer state are placed by the sharding rules
+    (``ShardingRules(fsdp=cfg.fsdp)``, as JAX's launcher);
+  * under ``python -m torch.distributed.run`` one process a card
+    (NCCL; gloo with ``--device cpu``): the mesh is the group's ranks,
+    params and ``m``/``v`` are ``DTensor``s, each step's batch is laid
+    out by ``data_sharding`` (each rank holds its rows), checkpoints
+    gather to rank 0's files, and rank 0 alone prints;
   * deterministic step-keyed data (resume == identical batches);
   * async atomic checkpoints every --ckpt-every steps, and SIGTERM
     flushes the last completed step and exits 0;
@@ -33,6 +39,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed
 
 from repro_torch.checkpoint import CheckpointManager, install_sigterm_handler
 from repro_torch.configs import get_config, get_smoke_config
@@ -42,14 +49,71 @@ from repro_torch.distributed.sharding import (
     ShardingRules,
     get_current_mesh,
     set_current_mesh,
-    tree_param_shardings,
 )
-from repro_torch.launch.mesh import describe, make_production_mesh, mesh_for
+from repro_torch.launch.mesh import (
+    describe,
+    group_up,
+    init_distributed,
+    make_production_mesh,
+    mesh_for,
+)
 from repro_torch.models import params as pmod
 from repro_torch.models.config import ShapeConfig
 from repro_torch.optim import OptimizerConfig, init_opt_state
 from repro_torch.training.step import make_train_step
 from repro_torch.tree import tree_map
+
+
+class StepClock:
+    """Milliseconds between consecutive ticks: CUDA events on a card (the
+    device's time line), the host's clock on the CPU."""
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.marks: list = []
+
+    def tick(self) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            self.marks.append(ev)
+        else:
+            self.marks.append(time.perf_counter())
+
+    def ms(self) -> list[float]:
+        if self.cuda:
+            torch.cuda.synchronize()
+            return [a.elapsed_time(b) for a, b in zip(self.marks, self.marks[1:])]
+        return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
+
+
+def leaf_layouts(tree) -> dict[str, dict]:
+    """Each leaf's type, global and local shape and (DTensor) placements."""
+    from repro_torch.checkpoint.manager import _flatten
+    from repro_torch.distributed.sharding import is_dtensor
+
+    out = {}
+    for key, t in _flatten(tree):
+        d = is_dtensor(t)
+        out[key] = {"type": type(t).__name__, "shape": list(t.shape),
+                    "local_shape": list(t.to_local().shape if d else t.shape),
+                    "placements": [str(p) for p in t.placements] if d else None}
+    return out
+
+
+def write_metrics(path: str, dev: torch.device, mesh, fields: dict) -> None:
+    """``<path>.rank<r>.json``: `fields`, the rank, the mesh and the peak
+    device memory of this process."""
+    import json
+    from pathlib import Path
+
+    rank = torch.distributed.get_rank() if mesh.distributed else 0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    rec = {"rank": rank, "world": mesh.size, "mesh": mesh.shape, "device": str(dev),
+           "max_memory_allocated": peak, **fields}
+    out = Path(f"{path}.rank{rank}.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rec))
 
 
 def main(argv=None, *, on_step=None) -> int:
@@ -70,10 +134,21 @@ def main(argv=None, *, on_step=None) -> int:
     ap.add_argument("--model-parallel", type=int, default=1)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write each rank's losses, step ms, peak memory and leaf layouts "
+                         "to <path>.rank<r>.json")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
-    devices = [dev] if dev.type == "cpu" else None
+    started = not group_up()
+    group_dev = init_distributed(args.device)  # None outside torchrun
+    dev = group_dev or resolve_device(args.device)
+    devices = [dev] if dev.type == "cpu" and group_dev is None else None
+    rank0 = group_dev is None or torch.distributed.get_rank() == 0
+
+    def say(line: str) -> None:
+        if rank0:
+            print(line, flush=True)
+
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     cfg = dataclasses.replace(cfg, grad_accum=1)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
@@ -87,12 +162,11 @@ def main(argv=None, *, on_step=None) -> int:
     guard = None
     try:
         rules = ShardingRules(fsdp=cfg.fsdp)
-        print(f"training {cfg.name} on {describe(mesh)}; {cfg.n_params():,} params", flush=True)
+        say(f"training {cfg.name} on {describe(mesh)}; {cfg.n_params():,} params")
 
         opt_cfg = OptimizerConfig(lr=args.lr, warmup_steps=args.warmup, total_steps=args.steps)
         step_fn = make_train_step(cfg, opt_cfg)
-        shardings = tree_param_shardings(mesh, pmod.param_specs(cfg), pmod.spec_tree_axes(cfg), rules)
-        params = tree_map(lambda p, s: s.place(p), pmod.init_params(cfg, args.seed, "cpu"), shardings)
+        params = pmod.init_params(cfg, args.seed, mesh=mesh, rules=rules)
         opt_state = init_opt_state(params)
 
         start_step = 0
@@ -101,7 +175,7 @@ def main(argv=None, *, on_step=None) -> int:
             mgr = CheckpointManager(args.ckpt_dir)
             latest = mgr.latest_step()
             if latest is not None:
-                print(f"resuming from step {latest}", flush=True)
+                say(f"resuming from step {latest}")
                 state = {"params": params, "opt": opt_state}
                 restored = mgr.restore(latest, state)
                 tree_map(lambda t, a: t.copy_(torch.as_tensor(a)), state, restored)
@@ -116,25 +190,25 @@ def main(argv=None, *, on_step=None) -> int:
             guard = install_sigterm_handler(flush)
 
         pipe = pipeline_for(cfg, shape, seed=args.seed)
-        data_dev = rules.data_sharding(mesh).device
         losses = []
+        clock = StepClock(dev)
         t0 = time.time()
         for step in range(start_step, args.steps):
             with guard.hold() if guard else contextlib.nullcontext():
-                batch = pipe.batch_at(step, data_dev)
+                batch = pipe.sharded_batch_at(step, mesh, rules)
                 params, opt_state, metrics = step_fn(params, opt_state, batch, step)
                 losses.append(float(metrics["loss"]))
+                clock.tick()
                 if on_step is not None:
                     on_step(step, params, opt_state, metrics)
                 if mgr:
                     live["step"] = step + 1
                 if step % args.log_every == 0 or step == args.steps - 1:
                     dt = time.time() - t0
-                    print(
+                    say(
                         f"step {step:5d} loss {losses[-1]:.4f} "
                         f"gnorm {float(metrics['grad_norm']):.3f} "
-                        f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)",
-                        flush=True,
+                        f"lr {float(metrics['lr']):.2e} ({dt:.1f}s)"
                     )
                 if mgr and (step + 1) % args.ckpt_every == 0:
                     mgr.save(step + 1, {"params": params, "opt": opt_state}, blocking=False)
@@ -145,7 +219,14 @@ def main(argv=None, *, on_step=None) -> int:
         if guard is not None:
             guard.close()
         set_current_mesh(previous)
-    print(f"final loss {np.mean(losses[-5:]):.4f} (first {np.mean(losses[:5]):.4f})", flush=True)
+    say(f"final loss {np.mean(losses[-5:]):.4f} (first {np.mean(losses[:5]):.4f})")
+    if args.metrics_out:
+        write_metrics(args.metrics_out, dev, mesh, {
+            "arch": cfg.name, "batch": args.batch, "seq": args.seq, "start_step": start_step,
+            "losses": losses, "step_ms": clock.ms(),
+            "leaves": leaf_layouts({"params": params, "opt": opt_state})})
+    if group_dev is not None and started:
+        torch.distributed.destroy_process_group()
     return 0
 
 

@@ -15,11 +15,13 @@ used: its bf16 path neither scores in float32 nor softcaps.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any
 
 import torch
 
+from repro_torch.distributed.sharding import PartitionSpec as P, constrain, is_dtensor
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -28,7 +30,36 @@ NEG_INF = -2.0**30
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("btd,dnh->btnh"): x (B, T, D) @ w (D, n, h)."""
+    if is_dtensor(w) and any(p.is_shard(2) for p in w.placements):
+        return _proj_per_shard(x, w)
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
+
+
+def _proj_per_shard(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`_proj` of a weight sharded on its head_dim (the heads do not
+    divide the ``model`` axis), on each rank's shards: such a layout has
+    no flattened form for DTensor's view ops (torch 2.11 refuses the
+    view, and its einsum takes the same view).  The weight is gathered
+    over its embed dim (FSDP), x keeps its batch shards where the weight
+    is whole, and each rank multiplies its local blocks; the output is
+    sharded on the batch and on the weight's n / h dims, and the local
+    gradients are partial sums over the dims the product contracted
+    across ranks (x's over the weight's shards, the weight's over x's)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = w.device_mesh
+    w_pl = [Replicate() if p.is_shard(0) else p for p in w.placements]
+    x_pl = [p if p.is_shard(0) and not q.is_shard() else Replicate()
+            for p, q in zip(x.placements, w_pl)]
+    x, w = x.redistribute(dm, x_pl), w.redistribute(dm, w_pl)
+    xl = x.to_local(grad_placements=[Partial() if q.is_shard() else p for p, q in zip(x_pl, w_pl)])
+    wl = w.to_local(grad_placements=[Partial() if p.is_shard() else q for p, q in zip(x_pl, w_pl)])
+    yl = (xl @ wl.reshape(wl.shape[0], -1)).unflatten(-1, wl.shape[1:])
+    out = [Shard(0) if p.is_shard() else Shard(q.dim + 1) if q.is_shard() else Replicate()
+           for p, q in zip(x_pl, w_pl)]
+    shape = torch.Size((*x.shape[:-1], *w.shape[1:]))
+    return DTensor.from_local(yl, dm, out, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tensor):
@@ -42,27 +73,130 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tenso
     return q, k, v
 
 
-def _gqa_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: the
+    local gradient of a shard goes back into a DTensor, whose view ops
+    need one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def _per_shard(cfg: ModelConfig, fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """fn(cfg, q, k, v, psum) -> (B, T, nq, hd), run on each rank's shards
+    where q, k, v are ``DTensor``s: the batch over the batch axes, and on
+    the ``model`` axis (m ranks) one of three layouts, none of which
+    computes a head twice:
+
+    * heads: the query and the kv heads both divide m.  Each rank's query
+      heads meet exactly their kv heads; no collective runs inside.
+    * kv heads gathered: the query heads divide m and the kv heads do not,
+      and there is more than one query row (train, prefill).  q keeps its
+      heads on ``model``, k and v are gathered whole over it, and each rank
+      attends with the kv heads its query heads read (GQA's kv
+      replication); their gradients go back as partial sums.
+    * head_dim: one query row (decode, whose cache ``decode_state_axes``
+      shards on head_dim when the kv heads do not divide m), or query heads
+      that do not divide m.  q, k and v are sharded on head_dim; each
+      rank's scores are partial sums over its slice of it, all-reduced over
+      ``model`` (``psum``) before the scale, the softcap and the softmax,
+      and the output keeps head_dim on ``model``.
+
+    Head counts and a head_dim that do not divide m raise.  The masks and
+    the online-softmax loop are plain tensors, which spares DTensor's
+    sharding propagation of every op of the loop."""
+    if not is_dtensor(q):
+        return fn(cfg, q, k, v, None)
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    dm = q.device_mesh
+    names = tuple(dm.mesh_dim_names)
+    m = dict(zip(names, dm.shape)).get("model", 1)
+    nq, nkv, g = cfg.n_heads, cfg.n_kv_heads, cfg.q_per_kv
+    nq_l = nq // m
+    if nq % m == 0 and nkv % m == 0:
+        layout = "heads"
+    elif (nq % m == 0 and (nq_l % g == 0 or g % nq_l == 0)
+          and (q.shape[1] > 1 or cfg.head_dim % m)):
+        layout = "kv_gathered"
+    elif cfg.head_dim % m == 0:
+        layout = "head_dim"
+    else:
+        raise NotImplementedError(
+            f"{cfg.name}: {nq} query heads, {nkv} kv heads and head_dim {cfg.head_dim} have "
+            f"no attention layout over a model axis of {m}")
+    batch = ("pod", "data")
+    by_heads, by_hd = P(batch, None, "model", None), P(batch, None, None, "model")
+    q = constrain(q, by_hd if layout == "head_dim" else by_heads)
+    kv_spec = {"heads": by_heads, "kv_gathered": P(batch, None, None, None),
+               "head_dim": by_hd}[layout]
+    k, v = constrain(k, kv_spec), constrain(v, kv_spec)
+
+    def on_model(t, p) -> list:
+        """t's placements with `p` on ``model``."""
+        return [p if n == "model" else x for n, x in zip(names, t.placements)]
+
+    if k.placements != v.placements or on_model(k, None) != on_model(q, None):
+        raise NotImplementedError(f"q {q.placements}, k {k.placements} and v {v.placements} "
+                                  "have no common batch layout for attention")
+
+    def local(t, grad=None):
+        return _ContiguousGrad.apply(t.to_local(grad_placements=grad))
+
+    psum = None
+    if layout == "heads":
+        lcfg = dataclasses.replace(cfg, n_heads=nq_l, n_kv_heads=nkv // m)
+        ql, kl, vl = local(q), local(k), local(v)
+    elif layout == "kv_gathered":
+        c = dm.get_local_rank("model")
+        lo, hi = c * nq_l // g, ((c + 1) * nq_l - 1) // g + 1
+        lcfg = dataclasses.replace(cfg, n_heads=nq_l, n_kv_heads=hi - lo)
+        ql = local(q)
+        kl, vl = (local(t, on_model(t, Partial()))[:, :, lo:hi] for t in (k, v))
+    else:
+        lcfg, (ql, kl, vl) = cfg, (local(t) for t in (q, k, v))
+        partial, summed = on_model(q, Partial()), on_model(q, Replicate())
+
+        def psum(scores):  # dim 0 is the batch, as in q
+            return (DTensor.from_local(scores, dm, partial, run_check=False)
+                    .redistribute(dm, summed).to_local())
+
+    out = fn(lcfg, ql, kl, vl, psum).contiguous()
+    full = (q.shape[0], q.shape[1], nq, cfg.head_dim)
+    return DTensor.from_local(out, dm, q.placements, run_check=False, shape=torch.Size(full),
+                              stride=torch.empty(full, device="meta").stride())
+
+
+def _gqa_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, psum=None) -> torch.Tensor:
     """q: (B,T,nq,hd), k: (B,S,nkv,hd) -> (B,nkv,g,T,S) fp32 logits.
 
     The products of the compute-dtype operands are exact in float32, so
-    scoring the float32 copies equals JAX's float32 accumulation."""
+    scoring the float32 copies equals JAX's float32 accumulation.  `psum`,
+    where given, sums the products of a head_dim shard over the ranks
+    (:func:`_per_shard`); the scale is that of the whole head_dim."""
     b, t, nq, hd = q.shape
     qg = q.reshape(b, t, cfg.n_kv_heads, cfg.q_per_kv, hd).permute(0, 2, 3, 1, 4)
     kt = k.permute(0, 2, 3, 1)[:, :, None]  # (B, nkv, 1, hd, S)
     scores = qg.float() @ kt.float()
-    scores = scores / math.sqrt(hd)
+    if psum is not None:
+        scores = psum(scores)
+    scores = scores / math.sqrt(cfg.head_dim)
     return layers.softcap(scores, cfg.attn_softcap)
 
 
-def _attend(cfg: ModelConfig, q, k, v, mask) -> torch.Tensor:
+def _attend(cfg: ModelConfig, q, k, v, mask, psum=None) -> torch.Tensor:
     """mask: broadcastable to (B, nkv, g, T, S) bool (True = visible)."""
-    scores = _gqa_scores(cfg, q, k)
+    scores = _gqa_scores(cfg, q, k, psum)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     b, t = q.shape[0], q.shape[1]
     out = probs.to(v.dtype) @ v.permute(0, 2, 1, 3)[:, :, None]  # (B, nkv, g, T, hd)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, t, cfg.n_heads, v.shape[-1])
 
 
 def _causal_mask(t: int, s: int, window: int = 0, device=None) -> torch.Tensor:
@@ -82,6 +216,7 @@ def _attend_blocked(
     *,
     causal: bool,
     window: int = 0,
+    psum=None,
 ) -> torch.Tensor:
     """Flash-style blocked attention with online softmax.
 
@@ -92,7 +227,7 @@ def _attend_blocked(
     unrolled form.  Its scanned form visits them, and the result is the
     same: a masked block after a visible one adds exp(NEG_INF - m) = 0,
     and one before every visible block is scaled by exp(NEG_INF - m) = 0
-    when the first visible block arrives.
+    when the first visible block arrives.  `psum` is :func:`_gqa_scores`'s.
     """
     b, t, nq, hd = q.shape
     s = k.shape[1]
@@ -101,7 +236,7 @@ def _attend_blocked(
     bkv = min(cfg.attn_block_kv, s)
     if t % bq or s % bkv:
         raise ValueError(f"blocked attention needs whole blocks: T={t}, bq={bq}, S={s}, bkv={bkv}")
-    scale = 1.0 / torch.sqrt(torch.tensor(float(hd)))
+    scale = 1.0 / torch.sqrt(torch.tensor(float(cfg.head_dim)))
     qs = q.reshape(b, t // bq, bq, nkv, g, hd).float()
     kf, vt = k.float(), v.dtype
     dev = q.device
@@ -121,6 +256,8 @@ def _attend_blocked(
             v_blk = v[:, kb * bkv:(kb + 1) * bkv]
             kv_pos = kb * bkv + torch.arange(bkv, device=dev)
             scores = torch.einsum("btngh,bsnh->btngs", q_blk, k_blk)  # (B, bq, nkv, g, bkv)
+            if psum is not None:
+                scores = psum(scores)
             scores = layers.softcap(scores * scale, cfg.attn_softcap)
             mask = torch.ones((bq, bkv), dtype=torch.bool, device=dev)
             if causal:
@@ -182,10 +319,12 @@ def self_attention(
             k = layers.rope(k, positions, base)
         t = x.shape[1]
         if _use_blocked(cfg, t):
-            out = _attend_blocked(cfg, q, k, v, causal=True, window=window)
+            out = _per_shard(cfg, lambda c, q, k, v, psum: _attend_blocked(
+                c, q, k, v, causal=True, window=window, psum=psum), q, k, v)
         else:
             mask = _causal_mask(t, t, window, x.device)[None, None, None]
-            out = _attend(cfg, q, k, v, mask)
+            out = _per_shard(cfg, lambda c, q, k, v, psum: _attend(c, q, k, v, mask, psum),
+                             q, k, v)
         y = _out_proj(p, out, dt)
         if mode == "train":
             return y, None
@@ -213,16 +352,29 @@ def self_attention(
         k_new = layers.rope(k_new, pos_b, base)
     k, v = cache["k"], cache["v"]
     slot = (pos % window if window else pos).reshape(1).long()
-    k.index_copy_(1, slot, k_new.to(k.dtype))
-    v.index_copy_(1, slot, v_new.to(v.dtype))
+    _write_row(k, slot, k_new)
+    _write_row(v, slot, v_new)
     j = torch.arange(k.shape[1], device=x.device)
     if window:
         valid = j < torch.clamp(pos + 1, max=window)  # filled rolling slots
     else:
         valid = j <= pos
     mask = valid[None, None, None, None, :]
-    out = _attend(cfg, q, k.to(dt), v.to(dt), mask)
+    out = _per_shard(cfg, lambda c, q, k, v, psum: _attend(c, q, k, v, mask, psum),
+                     q, k.to(dt), v.to(dt))
     return _out_proj(p, out, dt), {"k": k, "v": v}
+
+
+def _write_row(cache: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) -> None:
+    """Write the (B, 1, nkv, hd) row `new` into `cache` at `slot` of dim 1,
+    in place.  On a mesh each rank writes its own shard: the cache's
+    sequence dim is never sharded (``decode_state_axes``), so the row laid
+    out as the cache is the rank's part of it."""
+    if is_dtensor(cache):
+        row = new.to(cache.dtype).redistribute(cache.device_mesh, cache.placements).to_local()
+        cache.to_local().index_copy_(1, slot.to_local() if is_dtensor(slot) else slot, row)
+    else:
+        cache.index_copy_(1, slot, new.to(cache.dtype))
 
 
 def cross_attention(

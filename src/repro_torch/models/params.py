@@ -208,13 +208,18 @@ def leaf_seed(seed: int, path: str) -> int:
     return zlib.crc32(f"{int(seed)}/{path}".encode())
 
 
-def init_params(cfg: ModelConfig, seed: int = 0, device: torch.device | str | None = None) -> Tree:
-    """Materialize parameters on `device` (None: the card).
+def init_params(cfg: ModelConfig, seed: int = 0, device: torch.device | str | None = None,
+                mesh=None, rules=None) -> Tree:
+    """Materialize parameters on `device` (None: the card), or laid out
+    on `mesh` by `rules` (default ``ShardingRules()``).
 
-    Each "normal" or "embed" leaf is drawn on the CPU from its own
+    Each "normal" or "embed" leaf is drawn whole on the CPU from its own
     ``torch.Generator``, seeded by :func:`leaf_seed` from `seed` and the
     leaf's path, so the same seed gives the same weights in
-    every process and on every device.  JAX's ``init_params`` folds
+    every process and on every device.  On a mesh, each leaf is then
+    placed by its sharding (``tree_param_shardings``): on a distributed
+    mesh every rank draws the same whole leaf and keeps its shard, so the
+    weights are the one-device weights.  JAX's ``init_params`` folds
     Python's ``hash()`` of the path into its key; ``hash()`` of a str is
     salted per process, so its weights differ from run to run and cannot
     be reproduced here: parity with the JAX package carries its
@@ -222,19 +227,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: torch.device | str | No
     """
     from repro_torch.core.hdc_model import resolve_device
 
-    dev = resolve_device(device)
+    if mesh is not None:
+        from repro_torch.distributed.sharding import ShardingRules, tree_param_shardings
 
-    def walk(tree: Tree, path: tuple[str, ...]) -> Tree:
+        shardings = tree_param_shardings(mesh, param_specs(cfg), spec_tree_axes(cfg),
+                                         rules or ShardingRules())
+    else:
+        dev = resolve_device(device)
+
+    def walk(tree: Tree, path: tuple[str, ...], sh) -> Tree:
         out: Tree = {}
         for k, v in sorted(tree.items()):
             if isinstance(v, dict):
-                out[k] = walk(v, path + (k,))
+                out[k] = walk(v, path + (k,), None if sh is None else sh[k])
             else:
                 gen = torch.Generator().manual_seed(leaf_seed(seed, "/".join(path + (k,))))
-                out[k] = _init_leaf(v, gen, cfg.pdtype()).to(dev)
+                leaf = _init_leaf(v, gen, cfg.pdtype())
+                out[k] = leaf.to(dev) if sh is None else sh[k].place(leaf)
         return out
 
-    return walk(param_specs(cfg), ())
+    return walk(param_specs(cfg), (), shardings if mesh is not None else None)
 
 
 def spec_tree_axes(cfg: ModelConfig) -> Tree:

@@ -21,6 +21,20 @@ caches, "tail": [...]} — attention KV caches (rolling for local layers),
 RG-LRU/xLSTM recurrent states, cross-attention context KV.  A decode
 step updates the state in place: the KV caches take the new row where
 they lie, and the recurrent states are copied into their stacked slots.
+
+On a mesh (one process a card; ``distributed.sharding``) the params are
+``DTensor``s and every entry point runs on them under
+``sharding.mesh_ops``: ``constrain`` lays the activations out at JAX's
+four places (the residual after each mixer and each FFN and the embedded
+input over the batch axes, the logits over the batch axes and ``model``
+on the vocab), and DTensor's sharding propagation does the rest, as GSPMD
+does for JAX.  The stacked ``layers`` axis is never sharded (JAX's
+rule), so unbinding it needs no collective.  The loss over vocab-sharded
+logits takes JAX's form there (``_ce_chunk``).  A prefill lays its KV
+caches out by ``decode_state_axes`` through ``param_spec``'s ``batch``
+rule.  This slice lays out the dense self-attention archs; MoE,
+RG-LRU, xLSTM and cross-attention blocks on a mesh of more than one rank
+raise ``NotImplementedError`` (slices 10b and 10c, ROADMAP).
 """
 
 from __future__ import annotations
@@ -36,7 +50,13 @@ from torch.utils.checkpoint import (
     noop_context_fn,
 )
 
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed.sharding import (
+    PartitionSpec as P,
+    constrain,
+    constrain_logical,
+    is_dtensor,
+    mesh_ops,
+)
 from repro_torch.models import attention, layers, moe, recurrent, xlstm
 from repro_torch.models.config import ModelConfig
 
@@ -113,7 +133,7 @@ def apply_block(
     else:
         raise ValueError(f"unknown mixer kind {kind!r}")
 
-    x = constrain(x + y)
+    x = constrain(x + y, P(("pod", "data"), None, None))
 
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.ffn_kind == "dense" and cfg.d_ff > 0:
@@ -123,7 +143,7 @@ def apply_block(
         h2 = layers.rms_norm(x, p["ffn_norm"])
         y2, aux = moe.moe_ffn(cfg, p["moe"], h2)
         x = x + y2
-    x = constrain(x)
+    x = constrain(x, P(("pod", "data"), None, None))
     new_cache = None if new_mc is None and mode == "train" else {"mixer": new_mc}
     return x, new_cache, aux
 
@@ -192,8 +212,13 @@ def _tree_write(dst: Tree, i: int, src: Tree) -> None:
     for k, v in dst.items():
         if isinstance(v, dict):
             _tree_write(v, i, src[k])
-        elif src[k].data_ptr() != v[i].data_ptr():
+        elif _ptr(src[k]) != _ptr(v[i]):
             v[i].copy_(src[k])
+
+
+def _ptr(t: torch.Tensor) -> int:
+    """The address of `t`'s data (of this rank's shard for a DTensor)."""
+    return (t.to_local() if is_dtensor(t) else t).data_ptr()
 
 
 def run_stack(
@@ -210,6 +235,7 @@ def run_stack(
 ) -> tuple[torch.Tensor, Tree | None, torch.Tensor]:
     """Apply all layers.  Returns (x, new_caches, aux_loss).  In decode
     mode the group caches of `caches` are updated in place and returned."""
+    check_mesh_support(cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     with_cache = mode != "train"
     kw = dict(mode=mode, positions=positions, ctx=ctx, pos=pos, max_len=max_len)
@@ -258,10 +284,51 @@ def embed_inputs(cfg: ModelConfig, params: Tree, batch: Tree, positions) -> torc
         # sinusoidal positions (musicgen backbone convention)
         x = x + layers.sinusoidal_positions(positions, cfg.d_model).to(dt)
     else:
-        x = params["embed"][batch["tokens"]].to(dt)
+        x = _lookup(params["embed"], batch["tokens"]).to(dt)
         if cfg.embed_scale:
             x = x * torch.sqrt(torch.tensor(float(cfg.d_model))).to(dt)
-    return constrain(x)
+    return constrain(x, P(("pod", "data"), None, None))
+
+
+def _lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of `embed` at `tokens`; on a mesh, :func:`_lookup_per_shard`."""
+    if is_dtensor(embed):
+        return _lookup_per_shard(embed, tokens)
+    return embed[tokens]
+
+
+def _lookup_per_shard(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """A vocab-parallel lookup: each rank keeps its vocab rows of the table
+    (gathered over the embed dim where FSDP splits it), looks up the tokens
+    of its batch rows that fall in them, zeros elsewhere, and the partial
+    rows are summed over the vocab shards (an all-reduce of (B, S, D), as
+    XLA partitions JAX's gather).  DTensor's own rules for a gather from a
+    vocab-sharded table fail in torch 2.11 (``index_put`` in the backward)
+    and in 2.13 (the embedding's masked partial over a 2-d mesh)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = embed.device_mesh
+    if not is_dtensor(tokens):
+        tokens = DTensor.from_local(tokens, dm, [Replicate()] * dm.ndim, run_check=False)
+    e_pl = [Shard(0) if p.is_shard(0) else Replicate() for p in embed.placements]
+    t_pl = [p if p.is_shard(0) and not q.is_shard() else Replicate()
+            for p, q in zip(tokens.placements, e_pl)]
+    e, tokens = embed.redistribute(dm, e_pl), tokens.redistribute(dm, t_pl)
+    el = e.to_local(grad_placements=[Partial() if t.is_shard() else q for t, q in zip(t_pl, e_pl)])
+    tl = tokens.to_local().long()
+    n, shard = el.shape[0], 0
+    for i, q in enumerate(e_pl):  # this rank's vocab block, the first mesh dim the major one
+        if q.is_shard():
+            shard = shard * dm.size(i) + dm.get_local_rank(i)
+    rel = tl - shard * n
+    inside = (rel >= 0) & (rel < n)
+    rows = el[torch.where(inside, rel, 0)] * inside[..., None].to(el.dtype)
+    out = [Shard(0) if t.is_shard() else Partial() if q.is_shard() else Replicate()
+           for t, q in zip(t_pl, e_pl)]
+    shape = torch.Size((*tokens.shape, embed.shape[1]))
+    y = DTensor.from_local(rows, dm, out, run_check=False, shape=shape,
+                           stride=torch.empty(shape, device="meta").stride())
+    return y.redistribute(dm, [Replicate() if p.is_partial() else p for p in out])
 
 
 def _unembed_weight(cfg: ModelConfig, params: Tree) -> torch.Tensor:
@@ -271,7 +338,8 @@ def _unembed_weight(cfg: ModelConfig, params: Tree) -> torch.Tensor:
 
 def _logits(cfg: ModelConfig, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """float32 (softcapped) logits of x against a (D, V) weight in x's dtype."""
-    return constrain(layers.softcap((x @ w).float(), cfg.logit_softcap))
+    return constrain(layers.softcap((x @ w).float(), cfg.logit_softcap),
+                     P(("pod", "data"), None, "model"))
 
 
 def unembed(cfg: ModelConfig, params: Tree, x: torch.Tensor) -> torch.Tensor:
@@ -306,17 +374,68 @@ def _ce_chunk(cfg: ModelConfig, w: torch.Tensor, h: torch.Tensor, labels: torch.
     float32 logits are recomputed in the backward instead of being saved
     once per chunk."""
     logits = _logits(cfg, w, h)
-    logz = torch.logsumexp(logits, dim=-1)
-    # The gold logit by a gather.  JAX takes an einsum with a one-hot, so
-    # that logits sharded over the vocab need no all-gather; on one card
-    # the two are equal (the einsum's terms are x*0 = 0 and x*1 = x, so it
-    # sums exactly the gold logit), and the gather builds no (B, L, V)
-    # one-hot.
-    gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
+    if is_dtensor(logits):
+        # On a mesh the logits' vocab is sharded over ``model`` (JAX
+        # transformer.py:220), and the loss takes JAX's form so that no
+        # rank gathers them: the max and the sum of the logsumexp and the
+        # gold logit's one-hot sum are reductions over the vocab shards
+        # (all-reduces of (B, L)), as XLA partitions JAX's loss.
+        # ``loss_parallel`` is not used: it takes logits sharded on the
+        # class dim of a 1-d mesh, and these are sharded over the batch
+        # axes as well.
+        m = logits.detach().amax(-1, keepdim=True)
+        logz = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+        vocab = torch.arange(logits.shape[-1], device=logits.device)
+        gold = (logits * (labels[..., None].long() == vocab)).sum(-1)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        # The gold logit by a gather.  JAX takes an einsum with a one-hot,
+        # so that logits sharded over the vocab need no all-gather; on one
+        # card the two are equal (the einsum's terms are x*0 = 0 and x*1 =
+        # x, so it sums exactly the gold logit), and the gather builds no
+        # (B, L, V) one-hot.
+        gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
     ce = (logz - gold) * mask
     return ce.sum(), mask.sum()
 
 
+def mesh_slice(cfg: ModelConfig) -> tuple[str, str] | None:
+    """None where this slice lays `cfg`'s blocks out over a mesh of more
+    than one rank (the dense self-attention archs on token input), else
+    (the slice that will, the blocks): MoE is slice 10b; RG-LRU, xLSTM,
+    cross-attention and embedding input are slice 10c (ROADMAP §1)."""
+    if cfg.ffn_kind == "moe":
+        return "10b", "MoE"
+    kinds = sorted(set(cfg.layer_pattern + cfg.tail_pattern) - {"attn", "local"})
+    if cfg.input_mode != "tokens":
+        kinds.append(f"{cfg.input_mode}-input")
+    return ("10c", "/".join(kinds)) if kinds else None
+
+
+def check_mesh_support(cfg: ModelConfig, x: torch.Tensor) -> None:
+    """Raise where `x` is laid out over more than one rank and `cfg` has a
+    block this slice does not lay out (:func:`mesh_slice`)."""
+    if not is_dtensor(x) or x.device_mesh.size() <= 1:
+        return
+    where = mesh_slice(cfg)
+    if where is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {where[1]} blocks on a mesh of {x.device_mesh.size()} ranks are "
+            f"slice {where[0]} (ROADMAP)")
+
+
+def on_mesh(fn):
+    """Run an entry point f(cfg, params, ...) under ``mesh_ops(params)``."""
+
+    @functools.wraps(fn)
+    def wrapped(cfg, params, *args, **kwargs):
+        with mesh_ops(params):
+            return fn(cfg, params, *args, **kwargs)
+
+    return wrapped
+
+
+@on_mesh
 def loss_fn(cfg: ModelConfig, params: Tree, batch: Tree) -> tuple[torch.Tensor, Tree]:
     """Causal LM loss.  batch: {"tokens": (B, S)} (+"embeddings"/"ctx")."""
     tokens = batch["tokens"]
@@ -425,6 +544,22 @@ def _device_of(batch: Tree) -> torch.device:
     return (batch["embeddings"] if "embeddings" in batch else batch["tokens"]).device
 
 
+def _lay_out_state(cfg: ModelConfig, state: Tree) -> Tree:
+    """The decode caches of a prefill on a mesh, each laid out by its
+    ``decode_state_axes`` (the ``batch`` rule of ``param_spec``)."""
+
+    def walk(t, ax):
+        if isinstance(t, dict):
+            return {k: walk(t[k], ax[k]) for k in t}
+        if isinstance(t, list):
+            return [walk(a, b) for a, b in zip(t, ax)]
+        return constrain_logical(t, ax)
+
+    axes = decode_state_axes(cfg)
+    return {k: walk(v, axes[k]) for k, v in state.items()}
+
+
+@on_mesh
 def prefill(
     cfg: ModelConfig, params: Tree, batch: Tree, max_len: int | None = None
 ) -> tuple[torch.Tensor, Tree]:
@@ -446,16 +581,21 @@ def prefill(
     )
     x = layers.rms_norm(x, params["final_norm"])
     logits = unembed(cfg, params, x[:, -1:])[:, 0]
+    if is_dtensor(x):
+        caches = _lay_out_state(cfg, caches)
     caches["pos"] = torch.full((), s, dtype=torch.int32, device=dev)
     return logits, caches
 
 
+@on_mesh
 def decode_step(
     cfg: ModelConfig, params: Tree, state: Tree, tokens: torch.Tensor, **extra
 ) -> tuple[torch.Tensor, Tree]:
     """One serving step: tokens (B, 1) -> logits (B, V), updated state
     (the same caches, updated in place, with the position advanced)."""
     pos = state["pos"]
+    if is_dtensor(pos):  # a replicated scalar: every rank holds it whole
+        pos = pos.to_local()
     positions = pos.reshape(1, 1)
     batch = {"tokens": tokens, **extra}
     x = embed_inputs(cfg, params, batch, positions)
@@ -468,6 +608,7 @@ def decode_step(
     return logits, caches
 
 
+@on_mesh
 def forward_logits(cfg: ModelConfig, params: Tree, batch: Tree) -> torch.Tensor:
     """Logits (B, S, V) at every position of a full forward pass (train
     mode): the teacher-forcing reference for prefill and decode."""

@@ -15,6 +15,18 @@ The learning rate and the bias corrections are float32 scalars computed
 on the host (0-d CPU tensors), as JAX computes them in float32.
 ``adamw_step`` updates params, ``m`` and ``v`` in place (the counterpart
 of JAX's donated buffers) and returns them.
+
+On a mesh the leaves are ``DTensor``s.  The update is elementwise, so
+each rank updates its own shards in the moments' layout: the gradient is
+redistributed to it and the same formulas run on the local tensors (a
+shard has its parameter's ndim, which decides the weight decay).  Where
+the moments are laid out as the parameter (``init_opt_state``, the
+launcher) the parameter's shards are updated in place; where they are
+sharded further (the dry-run's ZeRO specs, ``launch.specs``) the
+parameter is redistributed to their layout, updated, and put back.
+``global_norm`` sums each leaf's squares over its shards
+(DTensor reduces them across ranks), so the clip scale is the
+one-device value.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 Tree = Any
@@ -69,14 +82,30 @@ def lr_at(cfg: OptimizerConfig, step) -> torch.Tensor:
 
 
 def init_opt_state(params: Tree) -> Tree:
+    """float32 zero moments, each laid out as its parameter."""
+
     def zeros(p):
+        if is_dtensor(p):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
 def global_norm(tree: Tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+    """The 2-norm of every leaf together; over ``DTensor`` leaves a
+    replicated 0-d ``DTensor`` (each leaf's sum of squares reduced across
+    its shards)."""
+    return torch.sqrt(sum(_sumsq(x) for x in tree_leaves(tree)))
+
+
+def _sumsq(x: torch.Tensor) -> torch.Tensor:
+    s = torch.sum(torch.square(x.float()))
+    if is_dtensor(s):
+        from torch.distributed.tensor import Replicate
+
+        s = s.redistribute(s.device_mesh, [Replicate()] * s.device_mesh.ndim)
+    return s
 
 
 def clip_by_global_norm(grads: Tree, max_norm: float) -> tuple[Tree, torch.Tensor]:
@@ -109,14 +138,34 @@ def adamw_step(
     # ``a.add_(b, alpha=c)`` rounds a + c * b once, as XLA's fused
     # multiply-add does for JAX's ``c * b + a``.
     for p, g, m, v in flat:
-        gf = g.float()
-        torch.add(gf * (1 - cfg.b1), m, alpha=cfg.b1, out=m)
-        torch.add(gf * (1 - cfg.b2) * gf, v, alpha=cfg.b2, out=v)
-        delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
-        if p.ndim >= 2 and cfg.weight_decay:
-            delta.add_(p.float(), alpha=cfg.weight_decay)
-        if p.dtype == torch.float32:
-            p.add_(delta, alpha=-lr_f)
-        else:
-            p.copy_(p.float().add_(delta, alpha=-lr_f))
+        if not is_dtensor(p):
+            _update(cfg, p, g, m, v, bc1, bc2, lr_f)
+            continue
+        # each rank updates its shards in the moments' layout (v shares m's)
+        mesh, layout = m.device_mesh, m.placements
+        g_l, m_l, v_l = g.redistribute(mesh, layout).to_local(), m.to_local(), v.to_local()
+        if p.placements == layout:  # as init_opt_state lays them out
+            _update(cfg, p.to_local(), g_l, m_l, v_l, bc1, bc2, lr_f)
+            continue
+        # ZeRO moments (the dry-run's specs): p updated in their layout, then put back
+        from torch.distributed.tensor import DTensor
+
+        p_l = p.redistribute(mesh, layout).to_local().clone()
+        _update(cfg, p_l, g_l, m_l, v_l, bc1, bc2, lr_f)
+        new = DTensor.from_local(p_l, mesh, layout, run_check=False, shape=p.shape,
+                                 stride=p.stride())
+        p.to_local().copy_(new.redistribute(mesh, p.placements).to_local())
     return params, opt_state, lr
+
+
+def _update(cfg, p, g, m, v, bc1: float, bc2: float, lr_f: float) -> None:
+    gf = g.float()
+    torch.add(gf * (1 - cfg.b1), m, alpha=cfg.b1, out=m)
+    torch.add(gf * (1 - cfg.b2) * gf, v, alpha=cfg.b2, out=v)
+    delta = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+    if p.ndim >= 2 and cfg.weight_decay:
+        delta.add_(p.float(), alpha=cfg.weight_decay)
+    if p.dtype == torch.float32:
+        p.add_(delta, alpha=-lr_f)
+    else:
+        p.copy_(p.float().add_(delta, alpha=-lr_f))

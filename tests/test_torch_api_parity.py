@@ -38,7 +38,8 @@ MODULE_EXCLUSIONS = {
 _JAX_SHARDING = ("jax.sharding's type, imported for JAX's layout calls; the port's Mesh, "
                  "NamedSharding and PartitionSpec live in repro_torch.distributed.sharding")
 _XLA_HLO = ("JAX's parser of the collectives in XLA's partitioned HLO text; the port compiles no "
-            "HLO, and its dry-run keeps the collective term at 0 with the reason in each record")
+            "HLO, and its dry-run counts the collectives its own sharded step sends "
+            "(launch.dryrun.count_collectives)")
 #: (module, name) of ``repro`` without a counterpart name, and why
 NAME_EXCLUSIONS = {
     ("core/hdc_model.py", "Mesh"): _JAX_SHARDING,
@@ -46,13 +47,11 @@ NAME_EXCLUSIONS = {
     ("core/hdc_model.py", "P"): _JAX_SHARDING,
     ("distributed/sharding.py", "P"): _JAX_SHARDING + " (P is JAX's alias of PartitionSpec)",
     ("models/moe.py", "P"): _JAX_SHARDING,
-    ("models/transformer.py", "P"): _JAX_SHARDING,
     ("serving/execution.py", "P"): _JAX_SHARDING,
     ("distributed/compress.py", "partial"): "functools.partial, imported and unused in the "
     "JAX module (its jax.jit / shard_map wrappers are built without it)",
     ("launch/train.py", "Path"): "pathlib.Path, imported and unused in the JAX launcher",
     ("analysis/roofline.py", "collective_bytes"): _XLA_HLO,
-    ("analysis/roofline.py", "COLLECTIVE_OPS"): _XLA_HLO + " (the HLO opcodes it sums)",
 }
 #: names of the Pallas kernels' entry points: defined only in the excluded
 #: Pallas modules and imported by ``repro.kernels.ops`` (the port's ops

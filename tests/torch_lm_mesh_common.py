@@ -1,0 +1,284 @@
+"""The mesh tests' ranks (``test_torch_lm_mesh_*.py``): one run of the port's
+sharded LM step on 4 gloo processes, and the helpers that read it back.
+
+Run as a script under ``python -m torch.distributed.run --standalone
+--nproc-per-node 4`` it starts the gloo group (``launch.mesh.init_distributed``),
+builds the (2, 2) ``data x model`` mesh of the group's ranks
+(``mesh_for(model_parallel=2)``; ``--model-parallel 4``: the (1, 4) mesh, on
+which qwen3-0.6b's 2 kv heads do not divide ``model`` and its wk and wv are
+sharded on their head_dim), and for each arch given, at smoke width in
+float32 compute, from the port's seed-0 weights laid out by ``RULES_KW``:
+
+* writes each rank's leaves (type, placements, local shape, local values);
+* runs ``loss_and_grads`` on ``batch_for(cfg, 2, 16, seed=1)`` (the batch of
+  ``tests/test_torch_lm_train_loss.py``) and writes the loss and the whole
+  gradients;
+* takes 3 ``make_train_step`` steps on ``TokenPipeline`` batches laid out by
+  ``data_sharding``, and the first once more from moments laid out as ZeRO
+  lays them out (over ``data`` where the parameter is not), and writes the
+  losses, whether the two first steps agree, the whole params and moments, and
+  a checkpoint of them through ``CheckpointManager`` (every rank gathers,
+  rank 0 writes), counting each rank's host copies of a leaf;
+* serves 4 prompts greedily through ``launch.serve.Server`` and writes the
+  tokens;
+* with ``--variant NAME``, runs ``loss_and_grads`` once more with the config
+  fields of ``VARIANTS[NAME]`` and writes it as ``<arch>.<NAME>``: the
+  per-block remat under the "dots" policy, and the online-softmax blocked
+  attention with 8-wide blocks (some wholly masked);
+* with ``--unsupported``, checks that a MoE and an RG-LRU arch raise on the
+  mesh.
+
+``RULES_KW`` makes ``ShardingRules(fsdp=True)`` with an FSDP threshold of 4 KiB
+(in float32), so that at smoke width the weight matrices are sharded over
+``data`` as well as ``model``; the norm scales (256 bytes) stay whole.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+SRC = str(ROOT / "src")
+WORLD = 4
+MESH_SHAPE = (2, 2)
+RULES_KW = dict(fsdp=True, fsdp_min_bytes=1 << 12)
+OPT = dict(warmup_steps=2, total_steps=10)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 32, 3
+SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN = 4, 8, 6
+#: config fields of the loss-and-gradient variants (``--variant``)
+VARIANTS = {
+    "remat_dots": dict(remat=True, remat_policy="dots"),
+    "blocked": dict(attn_block_threshold=16, attn_block_q=8, attn_block_kv=8),
+}
+
+
+def f32(cfg):
+    return dataclasses.replace(cfg, compute_dtype="float32")
+
+
+def prompts(vocab: int) -> np.ndarray:
+    return np.random.default_rng(0).integers(2, vocab, (SERVE_SLOTS, SERVE_PROMPT)).astype(np.int32)
+
+
+def loss_batch(cfg) -> dict[str, np.ndarray]:
+    rng = np.random.default_rng(1)
+    return {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)}
+
+
+def flat(tree, prefix: str = "") -> list[tuple[str, object]]:
+    """(key, leaf) in sorted-key order, keys joined with "/"."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in flat(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def mesh_shape(model_parallel: int) -> tuple[int, int]:
+    return WORLD // model_parallel, model_parallel
+
+
+def start_ranks(archs: list[str], out: Path, *, model_parallel: int = MESH_SHAPE[1],
+                unsupported: bool = False, variant: str | None = None) -> subprocess.Popen:
+    """Start this script on 4 gloo ranks; :func:`ranks_done` waits for it."""
+    env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
+    env.pop("WORLD_SIZE", None)
+    # at a lower priority (nice 10): the 4 ranks yield the cores to the
+    # suite's other workers, some of whose tests time short windows
+    cmd = ["nice", "-n", "10", sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={WORLD}", __file__, "--out", str(out),
+           "--model-parallel", str(model_parallel), *archs]
+    if unsupported:
+        cmd.append("--unsupported")
+    if variant:
+        cmd += ["--variant", variant]
+    return subprocess.Popen(cmd, env=env, text=True, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE)
+
+
+def ranks_done(proc: subprocess.Popen, out: Path, timeout: int = 600) -> Path:
+    _, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-4000:]
+    return out
+
+
+def _worker(archs: list[str], out: Path, unsupported: bool, model_parallel: int,
+            variant: str | None) -> None:
+    import torch
+
+    torch.set_num_threads(1)
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import manager as ckpt_manager
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.distributed.sharding import ShardingRules, is_dtensor, tree_param_shardings
+    from repro_torch.launch.mesh import init_distributed, mesh_for
+    from repro_torch.launch.serve import Server, ServerConfig
+    from repro_torch.models import params as pmod
+    from repro_torch.models import transformer
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.training.step import loss_and_grads, make_train_step
+    from repro_torch.tree import tree_map
+
+    init_distributed("cpu")
+    rank = torch.distributed.get_rank()
+    mesh = mesh_for(model_parallel=model_parallel)
+    assert mesh.shape == dict(zip(("data", "model"), mesh_shape(model_parallel))), mesh
+    rules = ShardingRules(**RULES_KW)
+    full = lambda t: t.full_tensor() if is_dtensor(t) else t  # noqa: E731
+    out.mkdir(parents=True, exist_ok=True)
+
+    for arch in archs:
+        cfg = f32(get_smoke_config(arch))
+        rec: dict = {"rank": rank, "mesh": mesh.shape}
+        params = pmod.init_params(cfg, 0, mesh=mesh, rules=rules)
+        leaves = flat(params)
+        rec["leaves"] = {k: {"type": type(t).__name__,
+                             "placements": [str(p) for p in t.placements] if is_dtensor(t) else None,
+                             "local_shape": list(t.to_local().shape if is_dtensor(t) else t.shape)}
+                         for k, t in leaves}
+        np.savez(out / f"{arch}.local{rank}.npz",
+                 **{k: (t.to_local() if is_dtensor(t) else t).numpy() for k, t in leaves})
+
+        batch = {k: rules.data_sharding(mesh).place(torch.from_numpy(v))
+                 for k, v in loss_batch(cfg).items()}
+        loss, metrics, grads = loss_and_grads(cfg, params, batch)
+        arrays = {f"grad/{k}": full(g).numpy() for k, g in flat(grads)}
+        rec["loss"] = float(full(loss))
+        rec["loss_metrics"] = {k: float(full(v)) for k, v in metrics.items()}
+        if variant:
+            vcfg = dataclasses.replace(cfg, **VARIANTS[variant])
+            vloss, vmetrics, vgrads = loss_and_grads(vcfg, params, batch)
+            vrec = {"loss": float(full(vloss)),
+                    "loss_metrics": {k: float(full(v)) for k, v in vmetrics.items()}}
+            vgrads = {f"grad/{k}": full(g).numpy() for k, g in flat(vgrads)}
+            if rank == 0:
+                np.savez(out / f"{arch}.{variant}.full.npz", **vgrads)
+            (out / f"{arch}.{variant}.rank{rank}.json").write_text(json.dumps(vrec))
+
+        step_fn = make_train_step(cfg, OptimizerConfig(**OPT))
+        opt = init_opt_state(params)
+        pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        rec["train"] = []
+        for step in range(TRAIN_STEPS):
+            params, opt, m = step_fn(params, opt, pipe.sharded_batch_at(step, mesh, rules), step)
+            rec["train"].append({k: float(v) for k, v in m.items()})
+            if step == 0:
+                first = {k: full(t).clone() for k, t in flat(params)}
+        # the first step once more, the moments laid out as ZeRO lays them out
+        # (every leaf over data, as the dry-run's specs): the same params
+        zparams = pmod.init_params(cfg, 0, mesh=mesh, rules=rules)
+        zero = tree_param_shardings(mesh, pmod.param_specs(cfg), pmod.spec_tree_axes(cfg),
+                                    dataclasses.replace(rules, fsdp_min_bytes=0))
+        zopt = {k: tree_map(lambda t, s: t.redistribute(t.device_mesh, s.placements), v, zero)
+                for k, v in init_opt_state(zparams).items()}
+        rec["zero_layouts_differ"] = sum(a.placements != b.placements for (_, a), (_, b)
+                                         in zip(flat(zparams), flat(zopt["m"])))
+        zparams, zopt, _ = step_fn(zparams, zopt, pipe.sharded_batch_at(0, mesh, rules), 0)
+        rec["zero_step_equal"] = all(torch.equal(full(t), first[k]) for k, t in flat(zparams))
+        state = {"params": params, "opt": opt}
+        arrays.update({f"state/{k}": full(t).numpy() for k, t in flat(state)})
+        rec["opt_placements_equal_params"] = all(
+            tuple(a.placements) == tuple(b.placements)
+            for (_, a), (_, b) in zip(flat(params), flat(opt["m"])))
+        copies = []
+        host = ckpt_manager._host
+        ckpt_manager._host = lambda leaf: copies.append(1) or host(leaf)  # noqa: E731
+        try:
+            CheckpointManager(out / f"{arch}.ckpt").save(TRAIN_STEPS, state)
+        finally:
+            ckpt_manager._host = host
+        rec["host_copies"] = len(copies)
+
+        server = Server(cfg, pmod.init_params(cfg, 0, mesh=mesh, rules=rules), SERVE_SLOTS,
+                        ServerConfig())
+        rec["tokens"] = server.generate(prompts(cfg.vocab_size), SERVE_GEN).tolist()
+
+        if rank == 0:
+            np.savez(out / f"{arch}.full.npz", **arrays)
+        (out / f"{arch}.rank{rank}.json").write_text(json.dumps(rec))
+
+    if unsupported:
+        raised = {}
+        for arch in ("olmoe-1b-7b", "recurrentgemma-2b"):
+            cfg = f32(get_smoke_config(arch))
+            params = pmod.init_params(cfg, 0, mesh=mesh, rules=rules)
+            batch = {"tokens": rules.data_sharding(mesh).place(
+                torch.from_numpy(loss_batch(cfg)["tokens"]))}
+            try:
+                transformer.loss_fn(cfg, params, batch)
+                raised[arch] = None
+            except NotImplementedError as e:
+                raised[arch] = str(e)
+        (out / f"unsupported.rank{rank}.json").write_text(json.dumps(raised))
+    torch.distributed.destroy_process_group()
+
+
+#: JAX's addressable shard of every parameter leaf on a (2, 2) mesh of 4 forced
+#: host devices under the same rules: the index slices of each mesh position
+_JAX_SHARDS = """
+import os
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import json, sys
+import jax
+from repro.configs import get_smoke_config
+from repro.distributed import sharding
+from repro.models import params as pmod
+mesh = jax.make_mesh({shape!r}, ("data", "model"))
+rules = sharding.ShardingRules(**{rules!r})
+out = {{}}
+for arch in {archs!r}:
+    cfg = get_smoke_config(arch)
+    specs = pmod.param_specs(cfg)
+    def walk(tree, prefix):
+        for k in sorted(tree):
+            v = tree[k]
+            if isinstance(v, dict):
+                walk(v, prefix + k + "/")
+                continue
+            sh = rules.param_sharding(v.shape, v.axes, mesh)
+            where = sh.devices_indices_map(tuple(v.shape))
+            pos = []
+            for idx in [(i, j) for i in range({shape!r}[0]) for j in range({shape!r}[1])]:
+                sl = where[mesh.devices[idx]]
+                pos.append([[s.start or 0, v.shape[d] if s.stop is None else s.stop]
+                            for d, s in enumerate(sl)])
+            out.setdefault(arch, {{}})[prefix + k] = {{"spec": [list(e) if isinstance(e, tuple) else e
+                                                      for e in tuple(sh.spec)], "slices": pos}}
+    walk(specs, "")
+print("RESULT", json.dumps(out))
+"""
+
+
+def start_jax_shards(archs: list[str], shape: tuple[int, int] = MESH_SHAPE) -> subprocess.Popen:
+    """JAX's shard slices of `archs`' parameters on a `shape` mesh, in a
+    subprocess (4 forced host devices); read them with :func:`jax_shards`."""
+    env = {"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    code = _JAX_SHARDS.format(shape=tuple(shape), rules=RULES_KW, archs=list(archs))
+    return subprocess.Popen([sys.executable, "-c", code], env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def jax_shards(proc: subprocess.Popen) -> dict:
+    stdout, stderr = proc.communicate(timeout=300)
+    line = [x for x in stdout.splitlines() if x.startswith("RESULT ")]
+    assert line, stderr[-3000:]
+    return json.loads(line[0][len("RESULT "):])
+
+
+if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("archs", nargs="*")
+    ap.add_argument("--out", required=True)
+    ap.add_argument("--unsupported", action="store_true")
+    ap.add_argument("--model-parallel", type=int, default=MESH_SHAPE[1])
+    ap.add_argument("--variant", choices=sorted(VARIANTS), default=None)
+    a = ap.parse_args()
+    _worker(a.archs, Path(a.out), a.unsupported, a.model_parallel, a.variant)
