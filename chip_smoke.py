@@ -2600,17 +2600,18 @@ LM_MESH_STEPS = 5
 LM_MESH_LOSS_BAND = 0.01
 
 
-def _lm_mesh_run(module: str, args: list[str], n: int, out: Path, timeout: int = 600):
+def _lm_mesh_run(module: str | Path, args: list[str], n: int, out: Path, timeout: int = 600):
     """``python -m torch.distributed.run --standalone --nproc-per-node n -m
-    <module> <args> --metrics-out <out>``; each rank's metrics record, and
-    rank 0's standard output."""
+    <module> <args> --metrics-out <out>`` (or the script at the path
+    `module`); each rank's metrics record, and rank 0's standard output."""
     import os
 
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
+    target = [str(module)] if isinstance(module, Path) else ["-m", module]
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           f"--nproc-per-node={n}", "-m", module, *args, "--metrics-out", str(out)]
+           f"--nproc-per-node={n}", *target, *args, "--metrics-out", str(out)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout, cwd=ROOT)
     seconds = time.perf_counter() - t0
@@ -2717,6 +2718,185 @@ def lm_mesh_phase(torch, np, smi: str, dev, cfg) -> dict:
             and all(p["margin"] <= 2 * LM_BF16_BOUND for p in parted.values())):
         raise AssertionError(f"the sharded server failed its checks: {serve}")
     emit("lm_mesh_phase", seconds=time.perf_counter() - t_phase, n=n)
+    return {k: 0 for k in KERNELS}
+
+
+# The lm_mesh_moe phase's trainer at full width with a depth cut (the launcher has
+# no depth option, as JAX's has none): one process a card under torchrun, the
+# args arch, layers, steps, batch, seq, and --metrics-out PATH.
+LM_MESH_MOE_TRAIN = """
+import dataclasses, sys
+import torch
+from repro_torch.configs import get_config
+from repro_torch.distributed.sharding import ShardingRules, set_current_mesh
+from repro_torch.launch.mesh import init_distributed, mesh_for
+from repro_torch.launch.train import StepClock, leaf_layouts, pipeline_for, write_metrics
+from repro_torch.models import params as pmod
+from repro_torch.models.config import ShapeConfig
+from repro_torch.optim import OptimizerConfig, init_opt_state
+from repro_torch.training.step import make_train_step
+
+arch, layers, steps, batch, seq = sys.argv[1], *map(int, sys.argv[2:6])
+dev = init_distributed(None)
+cfg = dataclasses.replace(get_config(arch), n_layers=layers, grad_accum=1)
+mesh = mesh_for()
+set_current_mesh(mesh)
+rules = ShardingRules(fsdp=cfg.fsdp)
+params = pmod.init_params(cfg, 0, mesh=mesh, rules=rules)
+opt = init_opt_state(params)
+step_fn = make_train_step(cfg, OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=steps))
+pipe = pipeline_for(cfg, ShapeConfig("cli", seq, batch, "train"), seed=0)
+torch.cuda.reset_peak_memory_stats(dev)
+clock, losses = StepClock(dev), []
+clock.tick()
+for step in range(steps):
+    params, opt, m = step_fn(params, opt, pipe.sharded_batch_at(step, mesh, rules), step)
+    losses.append(float(m["loss"]))
+    clock.tick()
+write_metrics(sys.argv[7], dev, mesh, {
+    "arch": cfg.name, "n_layers": layers, "n_params": cfg.n_params(), "batch": batch,
+    "seq": seq, "losses": losses, "step_ms": clock.ms(),
+    "leaves": leaf_layouts({"params": params, "opt": opt})})
+torch.distributed.destroy_process_group()
+"""
+LM_MESH_MOE_ARCH = "olmoe-1b-7b"
+# The depth cut of the full-width MoE training on one card: 4 of olmoe-1b-7b's
+# 16 layers (about 1.88 B parameters and 30 GB of float32 params, gradients and
+# AdamW moments); the full depth's 110 GB of state does not fit one 80 GB card.
+LM_MESH_MOE_TRAIN_LAYERS = 4
+
+
+def lm_mesh_moe_phase(torch, np, smi: str, dev) -> dict:
+    """The MoE blocks laid out over the cards (slice 10b), one process a card
+    (``torch.distributed.run --standalone --nproc-per-node N``, N = min(cards,
+    4), NCCL), olmoe-1b-7b at full width (64 experts, top-8, d 2048):
+
+    * ``launch.serve --arch olmoe-1b-7b`` at its defaults (batch 4, prompt 32,
+      gen 16, greedy, bf16) at full depth (16 layers): every leaf a
+      ``DTensor`` with the rules' placements (JAX's spec: the experts'
+      ``mlp`` dim on ``model``; each layer gathers its experts on ``model``
+      and exchanges the tokens with their owners by all-to-all), every
+      rank's tokens rank 0's, and rank 0's equal to the one-device
+      ``Server``'s on the card wherever the one-device top-2 margin exceeds
+      2 * LM_BF16_BOUND.  The one-device server runs under a current mesh of
+      the card in the launcher's shape, so that its MoE routes each batch
+      shard as the ranks do (``moe._moe_ffn_local``).  Seconds, tokens/s and
+      peak memory per rank;
+    * training at full width with the depth cut to LM_MESH_MOE_TRAIN_LAYERS
+      (``LM_MESH_MOE_TRAIN``, written into the phase's directory): 5 steps
+      at batch 8 x 256, each loss within LM_MESH_LOSS_BAND of the same
+      config's one-device run in this process (seed 0, the same batches,
+      the same per-shard dispatch); step ms p50 by CUDA events, tokens/s,
+      peak memory per rank.
+    The HDC kernels are not on these paths (the processes load none)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import Mesh, get_current_mesh, set_current_mesh
+    from repro_torch.launch.train import StepClock, pipeline_for
+    from repro_torch.models import params as pmod
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.training.step import make_train_step
+
+    t_phase = time.perf_counter()
+    n = min(torch.cuda.device_count(), 4)
+    d = fresh_dir("lm_mesh_moe")
+    cfg = get_config(LM_MESH_MOE_ARCH)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved(dev)
+    previous = get_current_mesh()
+
+    def like_ranks(shape: dict):
+        """A mesh of this card in the ranks' shape (one process, every cell)."""
+        return Mesh(np.array([dev] * n, dtype=object).reshape(tuple(shape.values())),
+                    tuple(shape))
+
+    recs, out, seconds = _lm_mesh_run("repro_torch.launch.serve", ["--arch", cfg.name], n,
+                                      d / "serve", timeout=900)
+    r0 = recs[0]
+    prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (r0["batch"], r0["prompt_len"]),
+                                                dtype=np.int32)
+    t0 = time.perf_counter()
+    set_current_mesh(like_ranks(r0["mesh"]))
+    try:
+        want, margins = _lm_greedy_margins(torch, np, cfg, dev, prompts, r0["gen"])
+    finally:
+        set_current_mesh(previous)
+    one_device_s = time.perf_counter() - t0
+    got = np.asarray(r0["tokens"])
+    parted = {}
+    for row in range(len(want)):
+        diff = np.flatnonzero(got[row] != want[row])
+        if len(diff):
+            parted[row] = {"step": int(diff[0]), "margin": float(margins[row, diff[0]])}
+    experts = {k: v["placements"] for k, v in r0["leaves"].items()
+               if k.rsplit("/", 1)[-1] in ("w_gate", "w_up", "w_down")}
+    serve = {
+        "arch": cfg.name, "n": n, "mesh": r0["mesh"], "n_layers": cfg.n_layers,
+        "n_params": cfg.n_params(), "seconds": seconds, "generate_s": r0["seconds"],
+        "tokens_per_s": r0["tokens_per_s"], "tokens": r0["tokens"], "one_device": want.tolist(),
+        "one_device_s": one_device_s, "rows_parted": parted, "near_tie": 2 * LM_BF16_BOUND,
+        "one_device_margins": np.round(margins, 4).tolist(),
+        "tokens_equal_across_ranks": all(r["tokens"] == r0["tokens"] for r in recs),
+        "leaf_types": sorted({v["type"] for v in r0["leaves"].values()}),
+        "expert_placements": experts,
+        "max_memory_allocated_per_rank": [r["max_memory_allocated"] for r in recs],
+        "main_process_reserved": held, "stdout_tail": out.splitlines()[-2:], "nvidia_smi": smi,
+    }
+    emit("lm_mesh_moe_serve", **serve)
+    if not (serve["leaf_types"] == ["DTensor"] and serve["tokens_equal_across_ranks"]
+            and experts and all(p["margin"] <= 2 * LM_BF16_BOUND for p in parted.values())):
+        raise AssertionError(f"the sharded MoE server failed its checks: {serve}")
+
+    layers, steps, b, s = LM_MESH_MOE_TRAIN_LAYERS, LM_MESH_STEPS, 8, 256
+    script = d / "train_moe.py"
+    script.write_text(LM_MESH_MOE_TRAIN)
+    recs, out, seconds = _lm_mesh_run(script, [cfg.name, str(layers), str(steps), str(b), str(s)],
+                                      n, d / "train", timeout=900)
+    cut = dataclasses.replace(cfg, n_layers=layers, grad_accum=1)
+    t0 = time.perf_counter()
+    set_current_mesh(like_ranks(recs[0]["mesh"]))
+    try:
+        params = pmod.init_params(cut, 0, dev)
+        opt = init_opt_state(params)
+        step_fn = make_train_step(cut, OptimizerConfig(lr=3e-4, warmup_steps=20, total_steps=steps))
+        pipe = pipeline_for(cut, ShapeConfig("cli", s, b, "train"), seed=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        clock, ref = StepClock(dev), []
+        clock.tick()
+        for step in range(steps):
+            params, opt, m = step_fn(params, opt, pipe.batch_at(step, dev), step)
+            ref.append(float(m["loss"]))
+            clock.tick()
+        one_ms = clock.ms()
+        one_peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        set_current_mesh(previous)
+    del params, opt, step_fn
+    torch.cuda.empty_cache()
+    one_device_s = time.perf_counter() - t0
+    diffs = [abs(a - w) for a, w in zip(recs[0]["losses"], ref, strict=True)]
+    step_ms = [float(np.percentile(r["step_ms"], 50)) for r in recs]
+    not_sharded = [k for r in recs for k, v in r["leaves"].items() if v["type"] != "DTensor"]
+    train = {
+        "arch": cfg.name, "n": n, "mesh": recs[0]["mesh"], "n_layers": layers,
+        "depth_cut": f"{layers} of {cfg.n_layers} layers", "n_params": recs[0]["n_params"],
+        "batch": b, "seq": s, "steps": steps, "seconds": seconds, "losses": recs[0]["losses"],
+        "one_device_losses": ref, "max_loss_diff": max(diffs), "band": LM_MESH_LOSS_BAND,
+        "losses_equal_across_ranks": all(r["losses"] == recs[0]["losses"] for r in recs),
+        "step_ms_all_rank0": recs[0]["step_ms"], "step_ms_p50_per_rank": step_ms,
+        "tokens_per_s": b * s / (max(step_ms) / 1e3),
+        "max_memory_allocated_per_rank": [r["max_memory_allocated"] for r in recs],
+        "one_device_step_ms_p50": float(np.percentile(one_ms, 50)),
+        "one_device_max_memory_allocated": one_peak, "one_device_s": one_device_s,
+        "not_dtensor": not_sharded, "stdout_tail": out.splitlines()[-3:], "nvidia_smi": smi,
+    }
+    emit("lm_mesh_moe_train", **train)
+    if not (not not_sharded and max(diffs) <= LM_MESH_LOSS_BAND
+            and train["losses_equal_across_ranks"] and np.isfinite(recs[0]["losses"]).all()):
+        raise AssertionError(f"the sharded MoE trainer failed its checks: {train}")
+    emit("lm_mesh_moe_phase", seconds=time.perf_counter() - t_phase, n=n)
     return {k: 0 for k in KERNELS}
 
 
@@ -3101,6 +3281,7 @@ def main() -> int:
     import numpy as np
 
     by_path["lm_mesh"] = lm_mesh_phase(torch, np, smi, dev, get_config("qwen3-0.6b"))
+    by_path["lm_mesh_moe"] = lm_mesh_moe_phase(torch, np, smi, dev)
     by_path.update(examples_phase(torch, ops))
     by_path.update(dryrun_phase(torch, ops, smi))
 

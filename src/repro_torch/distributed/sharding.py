@@ -396,6 +396,16 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def model_group(device_mesh, axis: str = "model"):
+    """The process group of this rank's peers along `axis` of a
+    ``DeviceMesh`` (the ranks that share its other coordinates), in the
+    order of their place on `axis`: the group of an expert-parallel
+    all-to-all, whose chunk i goes to the owner at place i."""
+    if axis not in (device_mesh.mesh_dim_names or ()):
+        raise ValueError(f"the mesh {device_mesh.mesh_dim_names} has no {axis!r} axis")
+    return device_mesh.get_group(axis)
+
+
 def _fit_spec(shape, spec, mesh_shape: dict[str, int]) -> PartitionSpec:
     """JAX's rule of ``constrain``: keep the axes of `spec` that the mesh
     has and whose sizes divide the dimension, drop the rest."""

@@ -146,15 +146,16 @@ class StepCounter(TorchDispatchMode):
 
 
 def coll_note(cfg) -> str | None:
-    """None where the port lays `cfg`'s blocks out over a mesh (the dense
-    self-attention archs), else why its collectives are not counted."""
+    """None where the port lays `cfg`'s blocks out over a mesh (the
+    self-attention archs, dense or MoE), else why its collectives are not
+    counted: the blocks and the slice that will lay them out."""
     from repro_torch.models.transformer import mesh_slice
 
     where = mesh_slice(cfg)
     if where is None:
         return None
-    return (f"not counted: {cfg.name}'s {where[1]} blocks are laid out over a mesh in slice "
-            f"{where[0]} (ROADMAP); the collective term is 0")
+    return (f"not counted: {cfg.name}'s {where[1]} blocks are not laid out over a mesh yet "
+            f"(slice {where[0]}, ROADMAP); the collective term is 0")
 
 
 #: c10d functional ops -> JAX's collective kinds

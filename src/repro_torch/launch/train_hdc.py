@@ -41,7 +41,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.hdc_model import resolve_device
 from repro_torch.data import load_dataset
-from repro_torch.distributed.sharding import set_current_mesh
+from repro_torch.distributed.sharding import get_current_mesh, set_current_mesh
 from repro_torch.launch.mesh import describe, mesh_for
 
 
@@ -67,7 +67,16 @@ def train(args, on_retrain=None) -> TrainResult:
     sees each retrained baseline model as it is trained.  No retrained
     model is kept: each holds its codebooks and, on a card, their cached
     [P == L] operand (109 MB at D = 8192), so keeping them would grow
-    with ``--baseline-iters``."""
+    with ``--baseline-iters``.  ``--shard-map`` makes its mesh current
+    for the run; the caller's current mesh is back when it returns."""
+    previous = get_current_mesh()
+    try:
+        return _train(args, on_retrain)
+    finally:
+        set_current_mesh(previous)
+
+
+def _train(args, on_retrain) -> TrainResult:
     device = resolve_device(args.device)
     ds = load_dataset(args.dataset, n_train=args.n_train, n_test=args.n_test)
     tag = " (synthetic)" if ds.synthetic else ""

@@ -87,6 +87,12 @@ class _ContiguousGrad(torch.autograd.Function):
         return grad.contiguous()
 
 
+def local_shard(t: torch.Tensor, grad_placements=None) -> torch.Tensor:
+    """This rank's shard of the ``DTensor`` t, its gradient handed back as
+    a ``DTensor`` with `grad_placements` (default: t's own)."""
+    return _ContiguousGrad.apply(t.to_local(grad_placements=grad_placements))
+
+
 def _per_shard(cfg: ModelConfig, fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """fn(cfg, q, k, v, psum) -> (B, T, nq, hd), run on each rank's shards
     where q, k, v are ``DTensor``s: the batch over the batch axes, and on
@@ -145,21 +151,18 @@ def _per_shard(cfg: ModelConfig, fn, q: torch.Tensor, k: torch.Tensor, v: torch.
         raise NotImplementedError(f"q {q.placements}, k {k.placements} and v {v.placements} "
                                   "have no common batch layout for attention")
 
-    def local(t, grad=None):
-        return _ContiguousGrad.apply(t.to_local(grad_placements=grad))
-
     psum = None
     if layout == "heads":
         lcfg = dataclasses.replace(cfg, n_heads=nq_l, n_kv_heads=nkv // m)
-        ql, kl, vl = local(q), local(k), local(v)
+        ql, kl, vl = local_shard(q), local_shard(k), local_shard(v)
     elif layout == "kv_gathered":
         c = dm.get_local_rank("model")
         lo, hi = c * nq_l // g, ((c + 1) * nq_l - 1) // g + 1
         lcfg = dataclasses.replace(cfg, n_heads=nq_l, n_kv_heads=hi - lo)
-        ql = local(q)
-        kl, vl = (local(t, on_model(t, Partial()))[:, :, lo:hi] for t in (k, v))
+        ql = local_shard(q)
+        kl, vl = (local_shard(t, on_model(t, Partial()))[:, :, lo:hi] for t in (k, v))
     else:
-        lcfg, (ql, kl, vl) = cfg, (local(t) for t in (q, k, v))
+        lcfg, (ql, kl, vl) = cfg, (local_shard(t) for t in (q, k, v))
         partial, summed = on_model(q, Partial()), on_model(q, Replicate())
 
         def psum(scores):  # dim 0 is the batch, as in q

@@ -12,13 +12,18 @@ Semantics (tested against a dense per-token loop oracle):
   * load-balancing aux loss: E * sum_e f_e * p_e (Switch).
 
 Two dispatches, as in the JAX package: "gspmd" dispatches the whole
-batch at once; "local" dispatches each batch shard of the current mesh
-on its own, with a capacity from that shard's token count.  JAX's local
-path sends each shard's dispatch buffer to the experts' owners along the
-"model" axis and back (two all-to-alls); every owner computes its
-experts on rows it received, so the exchange returns each shard the
-outputs of every expert on its own rows.  One process drives every
-cell of the port's meshes, so it computes those outputs in place.
+batch at once; "local" dispatches each batch shard of the mesh on its
+own, with a capacity from that shard's token count, and averages the
+shards' aux losses.
+
+On a mesh of ranks (``x`` a ``DTensor``, one process a card) the experts
+are laid out over the ``model`` axis, as JAX's ``shard_map`` and GSPMD
+lay them out (:func:`_moe_ffn_exchange`, :func:`_moe_ffn_owners`): each
+rank computes its E / M experts, their weights gathered whole (El, D, F)
+from the rules' layout.  Without a group (a plain tensor under a
+``Mesh`` of devices, such as the CPU tests' ``["cpu"] * 4``) one process
+computes every expert of every batch shard itself
+(:func:`_moe_ffn_local`): the outputs the two exchanges would return.
 """
 
 from __future__ import annotations
@@ -28,14 +33,24 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import get_current_mesh
+from repro_torch.distributed.sharding import (
+    PartitionSpec,
+    constrain,
+    get_current_mesh,
+    is_dtensor,
+    model_group,
+)
+from repro_torch.models.attention import local_shard
 from repro_torch.models.config import ModelConfig
 
 
 def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, D) -> (B, T, D), aux_loss scalar.  Dispatches to the
     configured implementation ("gspmd" global dispatch vs "local"
-    per-shard dispatch under a current mesh with a "model" axis)."""
+    per-shard dispatch under a mesh with a "model" axis): on a mesh of
+    ranks the mesh is x's, else the current one."""
+    if is_dtensor(x):
+        return _moe_ffn_on_ranks(cfg, p, x)
     mesh = get_current_mesh()
     if (
         cfg.moe_impl == "local"
@@ -133,6 +148,204 @@ def _moe_ffn_local(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh) -> tuple[to
         ys.append(_combine_local(cfg, _experts(p, buf), info, bl * t).reshape(bl, t, d))
         auxes.append(aux)
     return torch.cat(ys), torch.stack(auxes).mean()
+
+
+# ---------------------------------------------------------------------------
+# On a mesh of ranks (one process a card)
+# ---------------------------------------------------------------------------
+
+
+def _moe_ffn_on_ranks(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`moe_ffn` of a ``DTensor`` x: JAX's choice between its two
+    dispatches, on x's mesh.  Experts that do not divide the ``model``
+    axis raise: the expert buffer would have no layout over it."""
+    dm = x.device_mesh
+    shape = dict(zip(dm.mesh_dim_names, dm.shape))
+    m_size = shape.get("model", 1)
+    if cfg.moe_experts % m_size:
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.moe_experts} experts do not divide a model axis of {m_size}: "
+            "the expert buffer has no layout over it")
+    batch_axes = tuple(a for a in ("pod", "data") if a in shape)
+    n_shards = math.prod(shape[a] for a in batch_axes)
+    if cfg.moe_impl == "local" and "model" in shape and x.shape[0] % n_shards == 0:
+        return _moe_ffn_exchange(cfg, p, x, batch_axes)
+    return _moe_ffn_owners(cfg, p, x)  # JAX's gspmd, and its fallback of a batch that does not divide
+
+
+def _weights_local(p: dict, dm) -> tuple[torch.Tensor, dict]:
+    """The router whole and this rank's experts (El, D, F), each gathered
+    from the rules' layout: the experts on ``model`` (dim 0), replicated
+    elsewhere, as JAX's ``in_specs`` ``P("model", None, None)`` force.  The
+    local gradients are partial sums over the ranks that share the block
+    (every rank for the router), as each rank weighs its own rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    names = dm.mesh_dim_names
+    whole = [Replicate()] * dm.ndim
+    router = local_shard(p["router"].redistribute(dm, whole), [Partial()] * dm.ndim)
+    on = [Shard(0) if n == "model" else Replicate() for n in names]
+    grad = [Shard(0) if n == "model" else Partial() for n in names]
+    experts = {k: local_shard(p[k].redistribute(dm, on), grad) for k in ("w_gate", "w_up", "w_down")}
+    return router, experts
+
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity, whose backward scales the gradient by `s`."""
+
+    @staticmethod
+    def forward(ctx, t, s):
+        ctx.s = s
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.s, None
+
+
+def _wait(t: torch.Tensor) -> torch.Tensor:
+    return torch.ops._c10d_functional.wait_tensor(t)
+
+
+class _AllToAll(torch.autograd.Function):
+    """All-to-all of the equal chunks of dim 0 over a group (chunk i goes
+    to the group's rank i, and chunk i of the result came from it); the
+    backward sends the gradient's chunks back the same way."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _AllToAll.exchange(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.exchange(grad, ctx.group), None
+
+    @staticmethod
+    def exchange(t: torch.Tensor, group) -> torch.Tensor:
+        splits = [t.shape[0] // group.size()] * group.size()
+        return _wait(torch.ops._c10d_functional.all_to_all_single(
+            t.contiguous(), splits, splits, group.group_name))
+
+
+class _AllGather(torch.autograd.Function):
+    """All-gather along dim 0 over a group; the backward sums the
+    gradient over the group and hands each rank its chunk of it."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _wait(torch.ops._c10d_functional.all_gather_into_tensor(
+            t.contiguous(), group.size(), group.group_name))
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = ctx.group
+        return _wait(torch.ops._c10d_functional.reduce_scatter_tensor(
+            grad.contiguous(), "sum", g.size(), g.group_name)), None
+
+
+class _MeanOverRanks(torch.autograd.Function):
+    """JAX's ``pmean`` of each rank's value over every dim of a
+    ``DeviceMesh``: an all-reduce a dim, over the rank count.  Every rank
+    holds the mean's whole gradient, so each rank's term gets its share."""
+
+    @staticmethod
+    def forward(ctx, t, dm):
+        ctx.n = dm.size()
+        for i in range(dm.ndim):
+            g = dm.get_group(i)
+            t = _wait(torch.ops._c10d_functional.all_reduce(t, "sum", g.group_name))
+        return t / ctx.n
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad / ctx.n, None
+
+
+def _replicated(t: torch.Tensor, dm):
+    """A tensor every rank holds whole, as a replicated ``DTensor``."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, dm, [Replicate()] * dm.ndim, run_check=False)
+
+
+def _moe_ffn_exchange(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      batch_axes: tuple[str, ...]) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's ``shard_map`` path (``repro/models/moe.py`` ``_moe_ffn_local``)
+    on this rank's tokens: x's batch shards over `batch_axes`, the same
+    on every ``model`` rank of a batch shard.  The rank dispatches its
+    tokens into an (E, C, D) buffer with the capacity of its own token
+    count, sends the (M, El, C, D) blocks to the experts' owners along
+    ``model`` (an all-to-all), computes its El experts on the (El, M * C,
+    D) rows it receives, and sends the results back (the second
+    all-to-all) before the combine.  Within a batch shard every ``model``
+    rank dispatches the same tokens, so an owner computes M copies of
+    them, as JAX's does.  The aux loss is the mean over every rank.
+
+    The gradients are JAX's transpose of that program: y, the same on
+    the M ranks of a batch shard, passes each of them 1/M of its
+    gradient, so that the local gradients of x and of the router are
+    partial sums over ``model``, and an owner's expert gradient, summed
+    over the M copies, is its batch shard's (partial over the batch
+    axes)."""
+    from torch.distributed.tensor import DTensor, Partial
+
+    dm = x.device_mesh
+    names = dm.mesh_dim_names
+    b, t, d = x.shape
+    e = cfg.moe_experts
+    m_size = dm.size(names.index("model"))
+    el = e // m_size
+    x = constrain(x, PartitionSpec(batch_axes, None, None))
+    router, w = _weights_local(p, dm)
+    xl = local_shard(x, [Partial() if n == "model" else q for n, q in zip(names, x.placements)])
+    bl = xl.shape[0]
+    cap = _capacity(cfg, bl * t)
+    tokens = xl.reshape(bl * t, d)
+    buf, info, aux = _dispatch_local(cfg, tokens, tokens.float() @ router.float(), cap)
+    group = model_group(dm)
+    recv = _AllToAll.apply(buf.reshape(m_size, el, cap, d), group)  # from every peer, my experts
+    out = _experts(w, recv.transpose(0, 1).reshape(el, m_size * cap, d))
+    got = _AllToAll.apply(out.reshape(el, m_size, cap, d).transpose(0, 1), group)
+    y = _combine_local(cfg, got.reshape(e, cap, d), info, bl * t).reshape(bl, t, d)
+    y = DTensor.from_local(_ScaleGrad.apply(y, 1.0 / m_size), dm, x.placements, run_check=False,
+                           shape=x.shape, stride=x.stride())
+    return y, _replicated(_MeanOverRanks.apply(aux, dm), dm)
+
+
+def _moe_ffn_owners(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """JAX's gspmd path on a mesh of ranks: the tokens gathered whole
+    (over the batch axes), routed once on every rank, each rank computing
+    its El experts of the (E, C, D) buffer (the buffer on ``model``, as
+    JAX constrains it), and the experts' outputs all-gathered over
+    ``model`` before the combine.  Every rank computes the same y, and
+    passes 1/N of its gradient (N ranks), so that every local gradient
+    is a partial sum over the mesh: the all-gather's backward sums the
+    ``model`` ranks' shares, and the expert gradients are partial over
+    the other axes."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    dm = x.device_mesh
+    names = dm.mesh_dim_names
+    b, t, d = x.shape
+    n_all = dm.size()
+    m_size = dm.size(names.index("model")) if "model" in names else 1
+    el = cfg.moe_experts // m_size
+    router, w = _weights_local(p, dm)
+    xl = local_shard(x.redistribute(dm, [Replicate()] * dm.ndim), [Partial()] * dm.ndim)
+    tokens = xl.reshape(b * t, d)
+    buf, info, aux = _dispatch_local(cfg, tokens, tokens.float() @ router.float(),
+                                     _capacity(cfg, b * t))
+    if m_size > 1:
+        lo = dm.get_local_rank("model") * el
+        out = _AllGather.apply(_experts(w, buf[lo:lo + el]), model_group(dm))
+    else:
+        out = _experts(w, buf)
+    y = _combine_local(cfg, out, info, b * t).reshape(b, t, d)
+    y = DTensor.from_local(_ScaleGrad.apply(y, 1.0 / n_all), dm, [Replicate()] * dm.ndim,
+                           run_check=False, shape=x.shape, stride=x.stride())
+    return y, _replicated(_ScaleGrad.apply(aux, 1.0 / n_all), dm)
 
 
 def moe_ffn_dense_oracle(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -32,9 +32,10 @@ does for JAX.  The stacked ``layers`` axis is never sharded (JAX's
 rule), so unbinding it needs no collective.  The loss over vocab-sharded
 logits takes JAX's form there (``_ce_chunk``).  A prefill lays its KV
 caches out by ``decode_state_axes`` through ``param_spec``'s ``batch``
-rule.  This slice lays out the dense self-attention archs; MoE,
-RG-LRU, xLSTM and cross-attention blocks on a mesh of more than one rank
-raise ``NotImplementedError`` (slices 10b and 10c, ROADMAP).
+rule.  The dense self-attention archs and the MoE archs are laid out
+(the experts over ``model``, exchanged by all-to-all: ``moe``); RG-LRU,
+xLSTM and cross-attention blocks and embedding input on a mesh of more
+than one rank raise ``NotImplementedError`` (slice 10c, ROADMAP).
 """
 
 from __future__ import annotations
@@ -400,12 +401,10 @@ def _ce_chunk(cfg: ModelConfig, w: torch.Tensor, h: torch.Tensor, labels: torch.
 
 
 def mesh_slice(cfg: ModelConfig) -> tuple[str, str] | None:
-    """None where this slice lays `cfg`'s blocks out over a mesh of more
-    than one rank (the dense self-attention archs on token input), else
-    (the slice that will, the blocks): MoE is slice 10b; RG-LRU, xLSTM,
+    """None where the port lays `cfg`'s blocks out over a mesh of more
+    than one rank (the self-attention archs on token input, dense or
+    MoE), else (the slice that will, the blocks): RG-LRU, xLSTM,
     cross-attention and embedding input are slice 10c (ROADMAP §1)."""
-    if cfg.ffn_kind == "moe":
-        return "10b", "MoE"
     kinds = sorted(set(cfg.layer_pattern + cfg.tail_pattern) - {"attn", "local"})
     if cfg.input_mode != "tokens":
         kinds.append(f"{cfg.input_mode}-input")

@@ -205,7 +205,9 @@ def test_counted_flops_and_bytes_hold_to_xla_with_every_loop_unrolled(jax_side, 
 #: the stated band of the port's collective bytes over XLA's, per cell of the
 #: archs the port lays out over a mesh (measured on the train, prefill and
 #: decode smoke cells of qwen3-0.6b, qwen3-32b, gemma-7b and gemma3-12b on this
-#: mesh, jax 0.9.0: 0.60-1.80).  The port's step is eager PyTorch over
+#: mesh, jax 0.9.0: 0.60-1.80; the MoE archs' train and decode cells 0.50-0.54,
+#: as XLA on the CPU carries their bf16 all-to-alls in float32, at twice the
+#: port's bytes: ``test_torch_dryrun_coll_moe.py``).  The port's step is eager PyTorch over
 #: DTensors: it all-gathers where GSPMD keeps a layout, reduce-scatters the
 #: gradients of replicated weights that XLA all-reduces, and sums the clip's
 #: squares leaf by leaf, so its kinds and counts differ from XLA's while the

@@ -5,8 +5,9 @@ width (``torch_lm_mesh_common``'s ranks on a (2, 2) ``data x model`` mesh,
 ``torch_lm_mesh_checks``), and qwen3-0.6b once more on the (1, 4) mesh,
 where its 2 kv heads do not divide ``model`` and wk / wv are sharded on
 their head_dim (``attention._proj_per_shard``) and attention gathers the
-kv heads (train) or shards head_dim (decode).  Also: MoE and RG-LRU
-blocks on the mesh raise, naming their slices; the gradients hold under
+kv heads (train) or shards head_dim (decode).  Also: RG-LRU and xLSTM
+blocks on the mesh raise, naming their slice, where the MoE runs
+(``test_torch_lm_mesh_moe.py`` holds it to JAX); the gradients hold under
 the per-block remat with the "dots" policy too."""
 
 from __future__ import annotations
@@ -150,7 +151,12 @@ def test_kv_heads_that_do_not_divide_model_are_sharded_on_head_dim(run):
 
 
 def test_moe_and_rglru_blocks_raise_on_a_multi_rank_mesh(run):
+    """The RG-LRU and xLSTM blocks still raise on the mesh, naming slice 10c
+    and their blocks; the MoE blocks are laid out (slice 10b) and raise
+    nothing."""
     for rank in range(common.WORLD):
         raised = json.loads((run[2][0] / f"unsupported.rank{rank}.json").read_text())
-        assert "slice 10b" in raised["olmoe-1b-7b"] and "MoE" in raised["olmoe-1b-7b"]
-        assert "slice 10c" in raised["recurrentgemma-2b"]
+        assert set(raised) == set(common.UNSUPPORTED_RUN)
+        assert raised["olmoe-1b-7b"] is None
+        assert "slice 10c" in raised["recurrentgemma-2b"] and "rec" in raised["recurrentgemma-2b"]
+        assert "slice 10c" in raised["xlstm-1.3b"] and "mlstm" in raised["xlstm-1.3b"]

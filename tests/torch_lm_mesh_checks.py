@@ -101,8 +101,30 @@ def loss_and_grads(out: Path, arch: str, variant: str | None = None) -> None:
     jc = dataclasses.replace(common.f32(jget_smoke(arch)), **over)
     tc = dataclasses.replace(common.f32(tget_smoke(arch)), **over)
     tree = fixed_params(arch)
-    (jl, jm, jg), _ = loss_and_grads_both(jc, tc, tree, common.loss_batch(jc))
-    name = f"{arch}.{variant}" if variant else arch
+    (jl, jm, jg), _ = loss_and_grads_both(jc, tc, tree, common.loss_batch(jc, variant))
+    _hold_to(out, f"{arch}.{variant}" if variant else arch, tree, jl, jm, jg)
+
+
+def jax_on_mesh(jax_dir: Path, arch: str, variant: str | None = None):
+    """(loss, metrics, gradients in ``jax.tree.leaves`` order) of JAX's
+    ``loss_fn`` under the same mesh (``common._JAX_MESH_LOSS``)."""
+    with np.load(jax_dir / f"{arch}.{variant or 'base'}.jax.npz") as z:
+        metrics = {k.split("/", 1)[1]: float(z[k]) for k in z.files if k.startswith("metric/")}
+        n = sum(k.startswith("grad/") for k in z.files)
+        return float(z["loss"]), metrics, [z[f"grad/{i}"] for i in range(n)]
+
+
+def loss_and_grads_on_mesh(out: Path, jax_dir: Path, arch: str,
+                           variant: str | None = None) -> None:
+    """The sharded loss and gradients against JAX's under the same mesh
+    (the MoE's "local" dispatch routes each batch shard on its own, with
+    its own capacity and aux loss, so the one-device step is not its
+    reference), within the tolerances of :func:`loss_and_grads`."""
+    jl, jm, jg = jax_on_mesh(jax_dir, arch, variant)
+    _hold_to(out, f"{arch}.{variant}" if variant else arch, fixed_params(arch), jl, jm, jg)
+
+
+def _hold_to(out: Path, name: str, tree, jl: float, jm: dict, jg: list) -> None:
     full = _full(out, name)
     total = np.sqrt(sum(float(np.sum(np.square(g))) for g in jg))
     for rec in _ranks(out, name):
@@ -119,16 +141,27 @@ def loss_and_grads(out: Path, arch: str, variant: str | None = None) -> None:
         assert float(np.abs(t - j).max()) <= bound, (key, float(np.abs(t - j).max()), norm)
 
 
-def train_steps(out: Path, arch: str) -> None:
+def train_steps(out: Path, arch: str, per_shard: bool = False) -> None:
+    """`per_shard`: the one-device run under a current mesh of the CPU in
+    the ranks' shape, so that the MoE's "local" dispatch routes each batch
+    shard on its own, as the ranks do (``moe._moe_ffn_local``)."""
     cfg = common.f32(tget_smoke(arch))
     params = pmod.init_params(cfg, 0, "cpu")
     opt = init_opt_state(params)
     step_fn = make_train_step(cfg, OptimizerConfig(**common.OPT))
     pipe = TokenPipeline(cfg.vocab_size, common.TRAIN_SEQ, common.TRAIN_BATCH, seed=0)
+    shape = tuple(_ranks(out, arch)[0]["mesh"].values())
+    previous = tsharding.get_current_mesh()
+    if per_shard:
+        tsharding.set_current_mesh(tsharding.Mesh(
+            np.array(["cpu"] * common.WORLD, dtype=object).reshape(shape), ("data", "model")))
     metrics = []
-    for step in range(common.TRAIN_STEPS):
-        params, opt, m = step_fn(params, opt, pipe.batch_at(step, "cpu"), step)
-        metrics.append({k: float(v) for k, v in m.items()})
+    try:
+        for step in range(common.TRAIN_STEPS):
+            params, opt, m = step_fn(params, opt, pipe.batch_at(step, "cpu"), step)
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        tsharding.set_current_mesh(previous)
     for rec in _ranks(out, arch):
         for got, want in zip(rec["train"], metrics, strict=True):
             assert set(got) == set(want)

@@ -21,12 +21,15 @@ float32 compute, from the port's seed-0 weights laid out by ``RULES_KW``:
   rank 0 writes), counting each rank's host copies of a leaf;
 * serves 4 prompts greedily through ``launch.serve.Server`` and writes the
   tokens;
-* with ``--variant NAME``, runs ``loss_and_grads`` once more with the config
-  fields of ``VARIANTS[NAME]`` and writes it as ``<arch>.<NAME>``: the
-  per-block remat under the "dots" policy, and the online-softmax blocked
-  attention with 8-wide blocks (some wholly masked);
-* with ``--unsupported``, checks that a MoE and an RG-LRU arch raise on the
-  mesh.
+* with ``--variant NAME`` (one or more), runs ``loss_and_grads`` once more
+  with the config fields of ``VARIANTS[NAME]``, on ``loss_batch(cfg, NAME)``,
+  and writes it as ``<arch>.<NAME>``: the per-block remat under the "dots"
+  policy, the online-softmax blocked attention with 8-wide blocks (some
+  wholly masked), and the MoE's capacity drops on its local and its gspmd
+  dispatch (a batch whose shards route 64 tokens each, past the capacity
+  floor of 16) beside the dropless dispatch of the same batch;
+* with ``--unsupported``, runs ``loss_fn`` on a MoE, an RG-LRU and an xLSTM
+  arch and writes what each raised (the MoE raises nothing).
 
 ``RULES_KW`` makes ``ShardingRules(fsdp=True)`` with an FSDP threshold of 4 KiB
 (in float32), so that at smoke width the weight matrices are sharded over
@@ -56,7 +59,14 @@ SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN = 4, 8, 6
 VARIANTS = {
     "remat_dots": dict(remat=True, remat_policy="dots"),
     "blocked": dict(attn_block_threshold=16, attn_block_q=8, attn_block_kv=8),
+    "drops": dict(moe_capacity=0.5),
+    "drops_gspmd": dict(moe_capacity=0.5, moe_impl="gspmd"),
+    "dropless_wide": dict(),
 }
+#: the (batch, seq) of a variant's loss batch where it is not ``loss_batch``'s (2, 16)
+VARIANT_BATCH = {"drops": (4, 32), "drops_gspmd": (4, 32), "dropless_wide": (4, 32)}
+#: the archs of the ``--unsupported`` run
+UNSUPPORTED_RUN = ("olmoe-1b-7b", "recurrentgemma-2b", "xlstm-1.3b")
 
 
 def f32(cfg):
@@ -67,9 +77,10 @@ def prompts(vocab: int) -> np.ndarray:
     return np.random.default_rng(0).integers(2, vocab, (SERVE_SLOTS, SERVE_PROMPT)).astype(np.int32)
 
 
-def loss_batch(cfg) -> dict[str, np.ndarray]:
+def loss_batch(cfg, variant: str | None = None) -> dict[str, np.ndarray]:
     rng = np.random.default_rng(1)
-    return {"tokens": rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)}
+    shape = VARIANT_BATCH.get(variant, (2, 16))
+    return {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
 
 
 def flat(tree, prefix: str = "") -> list[tuple[str, object]]:
@@ -84,7 +95,8 @@ def mesh_shape(model_parallel: int) -> tuple[int, int]:
 
 
 def start_ranks(archs: list[str], out: Path, *, model_parallel: int = MESH_SHAPE[1],
-                unsupported: bool = False, variant: str | None = None) -> subprocess.Popen:
+                unsupported: bool = False,
+                variant: str | list[str] | None = None) -> subprocess.Popen:
     """Start this script on 4 gloo ranks; :func:`ranks_done` waits for it."""
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
@@ -95,8 +107,8 @@ def start_ranks(archs: list[str], out: Path, *, model_parallel: int = MESH_SHAPE
            "--model-parallel", str(model_parallel), *archs]
     if unsupported:
         cmd.append("--unsupported")
-    if variant:
-        cmd += ["--variant", variant]
+    for v in [variant] if isinstance(variant, str) else variant or []:
+        cmd += ["--variant", v]
     return subprocess.Popen(cmd, env=env, text=True, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE)
 
@@ -108,7 +120,7 @@ def ranks_done(proc: subprocess.Popen, out: Path, timeout: int = 600) -> Path:
 
 
 def _worker(archs: list[str], out: Path, unsupported: bool, model_parallel: int,
-            variant: str | None) -> None:
+            variants: list[str]) -> None:
     import torch
 
     torch.set_num_threads(1)
@@ -151,9 +163,11 @@ def _worker(archs: list[str], out: Path, unsupported: bool, model_parallel: int,
         arrays = {f"grad/{k}": full(g).numpy() for k, g in flat(grads)}
         rec["loss"] = float(full(loss))
         rec["loss_metrics"] = {k: float(full(v)) for k, v in metrics.items()}
-        if variant:
+        for variant in variants:
             vcfg = dataclasses.replace(cfg, **VARIANTS[variant])
-            vloss, vmetrics, vgrads = loss_and_grads(vcfg, params, batch)
+            vbatch = {k: rules.data_sharding(mesh).place(torch.from_numpy(v))
+                      for k, v in loss_batch(cfg, variant).items()}
+            vloss, vmetrics, vgrads = loss_and_grads(vcfg, params, vbatch)
             vrec = {"loss": float(full(vloss)),
                     "loss_metrics": {k: float(full(v)) for k, v in vmetrics.items()}}
             vgrads = {f"grad/{k}": full(g).numpy() for k, g in flat(vgrads)}
@@ -205,7 +219,7 @@ def _worker(archs: list[str], out: Path, unsupported: bool, model_parallel: int,
 
     if unsupported:
         raised = {}
-        for arch in ("olmoe-1b-7b", "recurrentgemma-2b"):
+        for arch in UNSUPPORTED_RUN:
             cfg = f32(get_smoke_config(arch))
             params = pmod.init_params(cfg, 0, mesh=mesh, rules=rules)
             batch = {"tokens": rules.data_sharding(mesh).place(
@@ -255,19 +269,61 @@ print("RESULT", json.dumps(out))
 """
 
 
-def start_jax_shards(archs: list[str], shape: tuple[int, int] = MESH_SHAPE) -> subprocess.Popen:
+#: JAX's ``loss_fn`` value and gradients under the same mesh and rules (JAX's
+#: ``moe_ffn`` reads the current mesh: its "local" dispatch runs the
+#: ``shard_map`` with the two all-to-alls), from the port's seed-0 weights,
+#: for each (arch, variant) case, written to ``<arch>.<variant>.jax.npz``
+_JAX_MESH_LOSS = """
+import dataclasses
+import jax.numpy as jnp
+import numpy as np
+from pathlib import Path
+from repro.launch.mesh import _make_mesh
+from repro.models import transformer
+import torch_lm_mesh_common as common
+from torch_lm_parity import fixed_params
+lmesh = _make_mesh({shape!r}, ("data", "model"))
+sharding.set_current_mesh(lmesh)
+for arch, variant in {cases!r}:
+    cfg = dataclasses.replace(common.f32(get_smoke_config(arch)), **common.VARIANTS.get(variant, {{}}))
+    leaves, treedef = jax.tree.flatten(jax.tree.map(jnp.asarray, fixed_params(arch)))
+    specs = jax.tree.leaves(pmod.param_specs(cfg), is_leaf=lambda v: isinstance(v, pmod.ParamSpec))
+    params = treedef.unflatten([jax.device_put(a, rules.param_sharding(s.shape, s.axes, lmesh))
+                                for a, s in zip(leaves, specs)])
+    batch = {{k: jax.device_put(jnp.asarray(v), rules.data_sharding(lmesh))
+             for k, v in common.loss_batch(cfg, variant).items()}}
+    vg = jax.jit(jax.value_and_grad(lambda p, b: transformer.loss_fn(cfg, p, b), has_aux=True))
+    with lmesh:
+        (loss, metrics), grads = vg(params, batch)
+    np.savez(Path({out!r}) / f"{{arch}}.{{variant or 'base'}}.jax.npz", loss=np.asarray(loss),
+             **{{f"metric/{{k}}": np.asarray(v) for k, v in metrics.items()}},
+             **{{f"grad/{{i}}": np.asarray(g) for i, g in enumerate(jax.tree.leaves(grads))}})
+print("LOSSES", len({cases!r}))
+"""
+
+
+def start_jax_shards(archs: list[str], shape: tuple[int, int] = MESH_SHAPE, *,
+                     loss_cases: list[tuple[str, str | None]] = (),
+                     out: Path | None = None) -> subprocess.Popen:
     """JAX's shard slices of `archs`' parameters on a `shape` mesh, in a
-    subprocess (4 forced host devices); read them with :func:`jax_shards`."""
-    env = {"PYTHONPATH": SRC, "PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu"}
+    subprocess (4 forced host devices); read them with :func:`jax_shards`.
+    With `loss_cases`, (arch, variant) pairs (None: the smoke config), it
+    also writes JAX's loss and gradients of each under that mesh into `out`
+    (``_JAX_MESH_LOSS``)."""
+    env = {"PYTHONPATH": f"{SRC}:{ROOT / 'tests'}", "PATH": "/usr/bin:/bin",
+           "JAX_PLATFORMS": "cpu"}
     code = _JAX_SHARDS.format(shape=tuple(shape), rules=RULES_KW, archs=list(archs))
-    return subprocess.Popen([sys.executable, "-c", code], env=env, text=True,
+    if loss_cases:
+        code += _JAX_MESH_LOSS.format(shape=tuple(shape), cases=list(loss_cases), out=str(out))
+    # at nice 10, as the ranks: the suite's other workers keep their share of the cores
+    return subprocess.Popen(["nice", "-n", "10", sys.executable, "-c", code], env=env, text=True,
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE)
 
 
 def jax_shards(proc: subprocess.Popen) -> dict:
-    stdout, stderr = proc.communicate(timeout=300)
+    stdout, stderr = proc.communicate(timeout=600)
     line = [x for x in stdout.splitlines() if x.startswith("RESULT ")]
-    assert line, stderr[-3000:]
+    assert line and proc.returncode == 0, stderr[-3000:]
     return json.loads(line[0][len("RESULT "):])
 
 
@@ -279,6 +335,6 @@ if __name__ == "__main__":
     ap.add_argument("--out", required=True)
     ap.add_argument("--unsupported", action="store_true")
     ap.add_argument("--model-parallel", type=int, default=MESH_SHAPE[1])
-    ap.add_argument("--variant", choices=sorted(VARIANTS), default=None)
+    ap.add_argument("--variant", choices=sorted(VARIANTS), action="append", default=[])
     a = ap.parse_args()
     _worker(a.archs, Path(a.out), a.unsupported, a.model_parallel, a.variant)
