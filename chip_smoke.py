@@ -123,10 +123,12 @@ Phases, each printed as one JSON object per line:
    LM examples launching none of the eight kernels, the 100m preset's loss
    falling; each example's seconds;
 18. dryrun: ``repro_torch.launch.dryrun.run_cell`` on the production mesh of 256
-   ``meta`` devices for qwen3-0.6b x train_4k and olmoe-1b-7b x decode_32k (the
-   seconds, counted flops, per-device argument bytes, roofline terms; qwen3's
-   collective bytes by kind, counted from its sharded step over a 256-rank
-   ``fake`` group, and the host seconds of that count), and
+   ``meta`` devices for qwen3-0.6b x train_4k, olmoe-1b-7b x decode_32k and
+   recurrentgemma-2b x train_4k (the seconds, counted flops, per-device argument
+   bytes, roofline terms; the collective bytes by kind, counted from the sharded
+   step over a 256-rank ``fake`` group, and the host seconds of that count), in a
+   child process with the card hidden, started before the LM phases and read
+   here, and
    ``run_hdc()``: the 65,536 x 784 fit at D = 8192 on the card through kernel 3,
    its ms by CUDA events beside its bound, its class sums against the JAX
    package's checksum.
@@ -140,6 +142,7 @@ and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import json
 import subprocess
@@ -2600,13 +2603,15 @@ LM_MESH_STEPS = 5
 LM_MESH_LOSS_BAND = 0.01
 
 
-def _lm_mesh_run(module: str | Path, args: list[str], n: int, out: Path, timeout: int = 600):
+def _lm_mesh_run(module: str | Path, args: list[str], n: int, out: Path, timeout: int = 600,
+                 env_extra: dict | None = None):
     """``python -m torch.distributed.run --standalone --nproc-per-node n -m
     <module> <args> --metrics-out <out>`` (or the script at the path
-    `module`); each rank's metrics record, and rank 0's standard output."""
+    `module`, `env_extra` added to its environment); each rank's metrics
+    record, and rank 0's standard output."""
     import os
 
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), **(env_extra or {}))
     for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
         env.pop(k, None)
     target = [str(module)] if isinstance(module, Path) else ["-m", module]
@@ -2622,13 +2627,15 @@ def _lm_mesh_run(module: str | Path, args: list[str], n: int, out: Path, timeout
     return recs, proc.stdout, seconds
 
 
-def _lm_greedy_margins(torch, np, cfg, dev, prompts, gen: int):
-    """The one-device ``Server``'s greedy tokens on `dev` (init_params(seed=0))
-    and each step's top-2 logit margin."""
+def _lm_greedy_margins(torch, np, cfg, dev, prompts, gen: int, params=None):
+    """The one-device ``Server``'s greedy tokens on `dev` (`params`, default
+    init_params(seed=0)) and each step's top-2 logit margin."""
     from repro_torch.launch.serve import Server, ServerConfig
     from repro_torch.models import params as pmod
 
-    server = Server(cfg, pmod.init_params(cfg, 0, dev), len(prompts), ServerConfig())
+    if params is None:
+        params = pmod.init_params(cfg, 0, dev)
+    server = Server(cfg, params, len(prompts), ServerConfig())
     logits, state = server._prefill(prompts)
     toks, margins = [], []
     for i in range(gen):
@@ -2641,6 +2648,17 @@ def _lm_greedy_margins(torch, np, cfg, dev, prompts, gen: int):
     del server
     torch.cuda.empty_cache()
     return out
+
+
+def _parted(np, got, want, margins) -> dict:
+    """{row: the first step where `got` parts from `want`, and the one-device
+    top-2 margin there}."""
+    parted = {}
+    for row in range(len(want)):
+        diff = np.flatnonzero(got[row] != want[row])
+        if len(diff):
+            parted[row] = {"step": int(diff[0]), "margin": float(margins[row, diff[0]])}
+    return parted
 
 
 def lm_mesh_phase(torch, np, smi: str, dev, cfg) -> dict:
@@ -2697,12 +2715,7 @@ def lm_mesh_phase(torch, np, smi: str, dev, cfg) -> dict:
     prompts = np.random.default_rng(0).integers(2, cfg.vocab_size, (r0["batch"], r0["prompt_len"]),
                                                 dtype=np.int32)
     want, margins = _lm_greedy_margins(torch, np, cfg, dev, prompts, r0["gen"])
-    got = np.asarray(r0["tokens"])
-    parted = {}
-    for row in range(len(want)):
-        diff = np.flatnonzero(got[row] != want[row])
-        if len(diff):
-            parted[row] = {"step": int(diff[0]), "margin": float(margins[row, diff[0]])}
+    parted = _parted(np, np.asarray(r0["tokens"]), want, margins)
     serve = {
         "n": n, "mesh": r0["mesh"], "seconds": seconds, "generate_s": r0["seconds"],
         "tokens_per_s": r0["tokens_per_s"], "tokens": r0["tokens"], "one_device": want.tolist(),
@@ -2788,8 +2801,11 @@ def lm_mesh_moe_phase(torch, np, smi: str, dev) -> dict:
       config's one-device run in this process (seed 0, the same batches,
       the same per-shard dispatch); step ms p50 by CUDA events, tokens/s,
       peak memory per rank.
-    The HDC kernels are not on these paths (the processes load none)."""
+    The one-device server's weights are drawn on the host in a thread while
+    the ranks serve.  The HDC kernels are not on these paths (the processes
+    load none)."""
     import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.configs import get_config
     from repro_torch.distributed.sharding import Mesh, get_current_mesh, set_current_mesh
@@ -2798,11 +2814,15 @@ def lm_mesh_moe_phase(torch, np, smi: str, dev) -> dict:
     from repro_torch.models.config import ShapeConfig
     from repro_torch.optim import OptimizerConfig, init_opt_state
     from repro_torch.training.step import make_train_step
+    from repro_torch.tree import tree_map
 
     t_phase = time.perf_counter()
     n = min(torch.cuda.device_count(), 4)
     d = fresh_dir("lm_mesh_moe")
     cfg = get_config(LM_MESH_MOE_ARCH)
+    pool = ThreadPoolExecutor(1)
+    drawn = pool.submit(pmod.init_params, cfg, 0, "cpu")
+    pool.shutdown(wait=False)
     torch.cuda.empty_cache()
     held = torch.cuda.memory_reserved(dev)
     previous = get_current_mesh()
@@ -2820,16 +2840,12 @@ def lm_mesh_moe_phase(torch, np, smi: str, dev) -> dict:
     t0 = time.perf_counter()
     set_current_mesh(like_ranks(r0["mesh"]))
     try:
-        want, margins = _lm_greedy_margins(torch, np, cfg, dev, prompts, r0["gen"])
+        want, margins = _lm_greedy_margins(torch, np, cfg, dev, prompts, r0["gen"],
+                                           tree_map(lambda t: t.to(dev), drawn.result()))
     finally:
         set_current_mesh(previous)
     one_device_s = time.perf_counter() - t0
-    got = np.asarray(r0["tokens"])
-    parted = {}
-    for row in range(len(want)):
-        diff = np.flatnonzero(got[row] != want[row])
-        if len(diff):
-            parted[row] = {"step": int(diff[0]), "margin": float(margins[row, diff[0]])}
+    parted = _parted(np, np.asarray(r0["tokens"]), want, margins)
     experts = {k: v["placements"] for k, v in r0["leaves"].items()
                if k.rsplit("/", 1)[-1] in ("w_gate", "w_up", "w_down")}
     serve = {
@@ -2897,6 +2913,161 @@ def lm_mesh_moe_phase(torch, np, smi: str, dev) -> dict:
             and train["losses_equal_across_ranks"] and np.isfinite(recs[0]["losses"]).all()):
         raise AssertionError(f"the sharded MoE trainer failed its checks: {train}")
     emit("lm_mesh_moe_phase", seconds=time.perf_counter() - t_phase, n=n)
+    return {k: 0 for k in KERNELS}
+
+
+# The archs of the lm_mesh_10c phase, served over the cards at full width and depth
+LM_MESH_10C_SERVE = ("recurrentgemma-2b", "xlstm-1.3b")
+# Its trainer, at full width and depth: recurrentgemma-2b's 2.89 B parameters take
+# 16 bytes each as float32 masters, gradients and AdamW's m and v (46.3 GB), and
+# the per-layer remat keeps one layer's activations of a 2 x 1024 batch; one 80 GB
+# card holds that, so the depth is not cut.
+LM_MESH_10C_TRAIN = ("recurrentgemma-2b", 2, 1024)
+# Each sharded training loss within this of the one-device step's (tighter than
+# LM_MESH_LOSS_BAND: the full-depth recurrentgemma-2b losses part by under 0.0018)
+LM_MESH_10C_LOSS_BAND = 0.002
+
+
+def lm_mesh_10c_phase(torch, np, smi: str, dev) -> dict:
+    """The RG-LRU and xLSTM blocks laid out over the cards (slice 10c), one
+    process a card (``torch.distributed.run --standalone --nproc-per-node N``,
+    N = min(cards, 4), NCCL), each mixer on its rank's batch shard and its
+    channels or heads (``models.per_shard``):
+
+    * ``launch.serve`` at its defaults (batch 4, prompt 32, gen 16, greedy,
+      bf16) for recurrentgemma-2b (26 layers, d 2560, rec width 2560, vocab
+      256,000) and xlstm-1.3b (48 layers, d 2048, 4 heads) at full width and
+      depth: every leaf a ``DTensor``, every rank's tokens rank 0's, and
+      rank 0's equal to the one-device ``Server``'s on the card wherever the
+      one-device top-2 margin exceeds 2 * LM_BF16_BOUND; seconds, tokens/s and
+      peak memory per rank beside the one-device server's seconds;
+    * recurrentgemma-2b trained at full width and depth (``LM_MESH_MOE_TRAIN``'s
+      script, LM_MESH_10C_TRAIN: 5 steps at batch 2 x 1024), each loss within
+      LM_MESH_10C_LOSS_BAND of the one-device step's in this process (seed 0,
+      the same batches, the weights the one-device server used); step ms p50
+      by CUDA events beside the one-device p50, each also over steps 2-5
+      alone (the first step's warm-up out), and peak GB of each.
+    The one-device weights are drawn on the host in a thread while the
+    ranks run (the draw is host work; the ranks' timed work is the card's),
+    and moved to the card after them.  Every record carries the card's name
+    and power limit.  The HDC kernels are not on these paths (the processes
+    load none)."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import StepClock, pipeline_for
+    from repro_torch.models import params as pmod
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.training.step import make_train_step
+    from repro_torch.tree import tree_map
+
+    t_phase = time.perf_counter()
+    n = min(torch.cuda.device_count(), 4)
+    d = fresh_dir("lm_mesh_10c")
+    pool = ThreadPoolExecutor(1)
+    drawn = {name: pool.submit(pmod.init_params, get_config(name), 0, "cpu")
+             for name in LM_MESH_10C_SERVE}
+    pool.shutdown(wait=False)
+    arch, b, s = LM_MESH_10C_TRAIN
+    steps = LM_MESH_STEPS
+    # what this process still holds of the earlier phases, with the card's
+    # 80 GB shared with a rank that peaks near 52 GB
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = {"main_process_allocated": torch.cuda.memory_allocated(dev),
+            "main_process_reserved": torch.cuda.memory_reserved(dev)}
+    emit("lm_mesh_10c_start", **held, nvidia_smi=smi)
+    script = d / "train.py"
+    script.write_text(LM_MESH_MOE_TRAIN)
+    tcfg = get_config(arch)
+    # expandable segments: the rank's peak fits without the free blocks a
+    # fixed-size cache strands between its steps' allocations
+    train_recs, train_out, train_s = _lm_mesh_run(
+        script, [arch, str(tcfg.n_layers), str(steps), str(b), str(s)], n, d / "train",
+        timeout=900, env_extra={"PYTORCH_CUDA_ALLOC_CONF": "expandable_segments:True"})
+    for name in LM_MESH_10C_SERVE:
+        cfg = get_config(name)
+        recs, out, seconds = _lm_mesh_run("repro_torch.launch.serve", ["--arch", name], n,
+                                          d / f"serve_{name}", timeout=900)
+        r0 = recs[0]
+        prompts = np.random.default_rng(0).integers(2, cfg.vocab_size,
+                                                    (r0["batch"], r0["prompt_len"]),
+                                                    dtype=np.int32)
+        t0 = time.perf_counter()
+        params = tree_map(lambda t: t.to(dev), drawn.pop(name).result())
+        want, margins = _lm_greedy_margins(torch, np, cfg, dev, prompts, r0["gen"], params)
+        one_device_s = time.perf_counter() - t0
+        parted = _parted(np, np.asarray(r0["tokens"]), want, margins)
+        serve = {
+            "arch": name, "n": n, "mesh": r0["mesh"], "n_layers": cfg.n_layers,
+            "d_model": cfg.d_model, "n_params": cfg.n_params(), "seconds": seconds,
+            "generate_s": r0["seconds"], "tokens_per_s": r0["tokens_per_s"],
+            "tokens": r0["tokens"], "one_device": want.tolist(),
+            "one_device_s": one_device_s, "rows_parted": parted, "near_tie": 2 * LM_BF16_BOUND,
+            "one_device_margins": np.round(margins, 4).tolist(),
+            "tokens_equal_across_ranks": all(r["tokens"] == r0["tokens"] for r in recs),
+            "leaf_types": sorted({v["type"] for v in r0["leaves"].values()}),
+            "max_memory_allocated_per_rank": [r["max_memory_allocated"] for r in recs],
+            "stdout_tail": out.splitlines()[-2:], "nvidia_smi": smi,
+        }
+        emit("lm_mesh_10c_serve", **serve)
+        if not (serve["leaf_types"] == ["DTensor"] and serve["tokens_equal_across_ranks"]
+                and all(p["margin"] <= 2 * LM_BF16_BOUND for p in parted.values())):
+            raise AssertionError(f"the sharded {name} server failed its checks: {serve}")
+        if name != arch:
+            del params
+            torch.cuda.empty_cache()
+            continue
+        # the one-device trainer from the same weights (seed 0), updated in place
+        t0 = time.perf_counter()
+        tcfg = dataclasses.replace(cfg, grad_accum=1)
+        opt = init_opt_state(params)
+        step_fn = make_train_step(tcfg, OptimizerConfig(lr=3e-4, warmup_steps=20,
+                                                        total_steps=steps))
+        pipe = pipeline_for(tcfg, ShapeConfig("cli", s, b, "train"), seed=0)
+        torch.cuda.reset_peak_memory_stats(dev)
+        clock, ref = StepClock(dev), []
+        clock.tick()
+        for step in range(steps):
+            params, opt, m = step_fn(params, opt, pipe.batch_at(step, dev), step)
+            ref.append(float(m["loss"]))
+            clock.tick()
+        one_ms = clock.ms()
+        one_peak = torch.cuda.max_memory_allocated(dev)
+        del params, opt, step_fn
+        torch.cuda.empty_cache()
+        one_train_s = time.perf_counter() - t0
+    diffs = [abs(a - w) for a, w in zip(train_recs[0]["losses"], ref, strict=True)]
+    step_ms = [float(np.percentile(r["step_ms"], 50)) for r in train_recs]
+    # steps 2.. alone: the first step's warm-up (allocator, NCCL, autotuning)
+    steady_ms = [float(np.percentile(r["step_ms"][1:], 50)) for r in train_recs]
+    one_steady_ms = float(np.percentile(one_ms[1:], 50))
+    not_sharded = [k for r in train_recs for k, v in r["leaves"].items() if v["type"] != "DTensor"]
+    train = {
+        "arch": arch, "n": n, "mesh": train_recs[0]["mesh"], "n_layers": tcfg.n_layers,
+        "depth_cut": None, "n_params": train_recs[0]["n_params"], "batch": b, "seq": s,
+        "steps": steps, "seconds": train_s, "losses": train_recs[0]["losses"],
+        "one_device_losses": ref, "max_loss_diff": max(diffs), "band": LM_MESH_10C_LOSS_BAND,
+        "losses_equal_across_ranks": all(r["losses"] == train_recs[0]["losses"]
+                                         for r in train_recs),
+        "step_ms_all_rank0": train_recs[0]["step_ms"], "step_ms_p50_per_rank": step_ms,
+        "one_device_step_ms_p50": float(np.percentile(one_ms, 50)),
+        "one_device_step_ms_all": list(one_ms),
+        "steady_step_ms_p50_per_rank": steady_ms, "one_device_steady_step_ms_p50": one_steady_ms,
+        "steady_step_ratio": max(steady_ms) / one_steady_ms,
+        "tokens_per_s": b * s / (max(step_ms) / 1e3),
+        "peak_gb_per_rank": [r["max_memory_allocated"] / 1e9 for r in train_recs],
+        "one_device_peak_gb": one_peak / 1e9, "one_device_s": one_train_s, **held,
+        "not_dtensor": not_sharded, "stdout_tail": train_out.splitlines()[-3:],
+        "nvidia_smi": smi,
+    }
+    emit("lm_mesh_10c_train", **train)
+    if not (not not_sharded and max(diffs) <= LM_MESH_10C_LOSS_BAND
+            and train["losses_equal_across_ranks"] and np.isfinite(train["losses"]).all()):
+        raise AssertionError(f"the sharded {arch} trainer failed its checks: {train}")
+    emit("lm_mesh_10c_phase", seconds=time.perf_counter() - t_phase, n=n, nvidia_smi=smi)
     return {k: 0 for k in KERNELS}
 
 
@@ -3119,24 +3290,21 @@ def examples_phase(torch, ops) -> dict[str, dict]:
     return by_path
 
 
-def dryrun_phase(torch, ops, smi: str) -> dict[str, dict]:
-    """``repro_torch.launch.dryrun``: ``run_cell`` on two cells of the
-    production mesh over ``meta`` (qwen3-0.6b x train_4k, olmoe-1b-7b x
-    decode_32k: seconds, counted flops, per-device argument bytes, the
-    roofline terms; qwen3-0.6b's collective bytes by kind from its sharded
-    step over the 256-rank ``fake`` group, ``collective_s``, and the host
-    seconds the count costs, ``coll_s``; olmoe's 0 with its note), then ``run_hdc()`` at D = 8192 on the card (kernel 3 on
-    65,536 x 784 images, 16 classes; launches counted): its fit ms by CUDA
-    events, its bound, and its class sums against JAX_DRYRUN_HDC_SHA256."""
-    from repro_torch.configs import get_config
+#: the dry-run's cells on the production mesh over ``meta``
+DRYRUN_CELLS = (("qwen3-0.6b", "train_4k"), ("olmoe-1b-7b", "decode_32k"),
+                ("recurrentgemma-2b", "train_4k"))
+
+
+def dryrun_cells_child() -> None:
+    """Run in a child process (:func:`start_dryrun_cells`): ``run_cell`` on
+    each of DRYRUN_CELLS, one JSON record a line on standard output."""
     from repro_torch.launch import dryrun
 
-    t_phase = time.perf_counter()
-    cells = {}
-    for arch, shape in (("qwen3-0.6b", "train_4k"), ("olmoe-1b-7b", "decode_32k")):
+    for arch, shape in DRYRUN_CELLS:
         t0 = time.perf_counter()
         rec = dryrun.run_cell(arch, shape, do_roofline=True, verbose=False)
-        cells[f"{arch} x {shape}"] = {
+        print(json.dumps({
+            "arch": arch, "shape": shape,
             "seconds": time.perf_counter() - t0, "run_s": rec["run_s"],
             "flops_global": rec["raw"]["flops_global"], "model_flops": rec["model_flops"],
             "argument_bytes": rec["memory"]["argument_bytes"],
@@ -3144,14 +3312,56 @@ def dryrun_phase(torch, ops, smi: str) -> dict[str, dict]:
             **{k: rec["raw"][k] for k in ("coll_bytes", "coll_by_type", "coll_counts", "coll_s",
                                           "coll_note")},
             "collective_s": rec["terms"]["collective_s"],
-        }
-        emit("dryrun_cell", arch=arch, shape=shape, **cells[f"{arch} x {shape}"])
-        if not (rec["raw"]["flops_global"] > 0 and rec["memory"]["argument_bytes"] > 0):
+        }), flush=True)
+
+
+def start_dryrun_cells() -> tuple[subprocess.Popen, Path]:
+    """The dry-run's cells are host work on ``meta`` (no card): a child
+    process computes them while the card's phases run, with the card
+    hidden from it; :func:`dryrun_phase` reads them."""
+    import os
+
+    d = fresh_dir("dryrun_cells")
+    env = dict(os.environ, PYTHONPATH=f"{ROOT}{os.pathsep}{ROOT / 'src'}",
+               CUDA_VISIBLE_DEVICES="")
+    with open(d / "stdout", "w") as out, open(d / "stderr", "w") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.dryrun_cells_child()"],
+            env=env, cwd=ROOT, stdout=out, stderr=err)
+    return proc, d
+
+
+def dryrun_phase(torch, ops, smi: str, cells_child: tuple[subprocess.Popen, Path]
+                 ) -> dict[str, dict]:
+    """``repro_torch.launch.dryrun``: ``run_cell`` on DRYRUN_CELLS of the
+    production mesh over ``meta`` (qwen3-0.6b x train_4k, olmoe-1b-7b x
+    decode_32k, recurrentgemma-2b x train_4k: seconds, counted flops,
+    per-device argument bytes, the roofline terms; each cell's collective
+    bytes by kind from its sharded step over the 256-rank ``fake`` group,
+    ``collective_s``, and the host seconds the count costs, ``coll_s``),
+    computed by `cells_child` (:func:`start_dryrun_cells`) while the earlier
+    phases ran, then ``run_hdc()`` at D = 8192 on the card (kernel 3 on
+    65,536 x 784 images, 16 classes; launches counted): its fit ms by CUDA
+    events, its bound, and its class sums against JAX_DRYRUN_HDC_SHA256."""
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    proc, d = cells_child
+    if proc.wait(timeout=900) != 0:
+        raise AssertionError(f"the dry-run's cells exited {proc.returncode}: "
+                             f"{(d / 'stderr').read_text()[-3000:]}")
+    recs = [json.loads(line) for line in (d / "stdout").read_text().splitlines()
+            if line.startswith("{")]
+    if [(r["arch"], r["shape"]) for r in recs] != list(DRYRUN_CELLS):
+        raise AssertionError(f"the dry-run's cells printed {len(recs)} records")
+    for rec in recs:
+        arch, shape = rec.pop("arch"), rec.pop("shape")
+        emit("dryrun_cell", arch=arch, shape=shape, waited_s=time.perf_counter() - t_phase, **rec)
+        if not (rec["flops_global"] > 0 and rec["argument_bytes"] > 0):
             raise AssertionError(f"the dry-run of {arch} x {shape} counted nothing")
-        counted = dryrun.coll_note(get_config(arch)) is None
-        if counted != (rec["raw"]["coll_bytes"] > 0):
-            raise AssertionError(f"the dry-run of {arch} x {shape} has collective bytes "
-                                 f"{rec['raw']['coll_bytes']}: {rec['raw']['coll_note']}")
+        if not rec["coll_bytes"] > 0:
+            raise AssertionError(f"the dry-run of {arch} x {shape} counted no collective bytes: "
+                                 f"{rec['coll_note']}")
     t0 = time.perf_counter()
     rec, launches = path_launches(ops, "dryrun_hdc", ("fit_bundle",),
                                   lambda: dryrun.run_hdc(d=8192, verbose=False),
@@ -3276,14 +3486,21 @@ def main() -> int:
 
     from repro_torch.configs import get_config
 
-    by_path["lm_serve"] = lm_serve_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
-    by_path["lm_train"] = lm_train_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
-    import numpy as np
+    cells_child = start_dryrun_cells()
+    try:
+        by_path["lm_serve"] = lm_serve_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
+        by_path["lm_train"] = lm_train_phase(torch, ops, smi, dev, get_config("qwen3-0.6b"))
+        import numpy as np
 
-    by_path["lm_mesh"] = lm_mesh_phase(torch, np, smi, dev, get_config("qwen3-0.6b"))
-    by_path["lm_mesh_moe"] = lm_mesh_moe_phase(torch, np, smi, dev)
-    by_path.update(examples_phase(torch, ops))
-    by_path.update(dryrun_phase(torch, ops, smi))
+        by_path["lm_mesh"] = lm_mesh_phase(torch, np, smi, dev, get_config("qwen3-0.6b"))
+        by_path["lm_mesh_moe"] = lm_mesh_moe_phase(torch, np, smi, dev)
+        by_path["lm_mesh_10c"] = lm_mesh_10c_phase(torch, np, smi, dev)
+        by_path.update(examples_phase(torch, ops))
+        by_path.update(dryrun_phase(torch, ops, smi, cells_child))
+    finally:
+        if cells_child[0].poll() is None:
+            cells_child[0].kill()
+            cells_child[0].wait()
 
     lost = lost_phase(torch, ops, ref, sobol)
     line = []

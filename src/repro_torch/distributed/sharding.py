@@ -34,9 +34,10 @@ Two ways to run over a mesh, one for each family of paths:
   ``DTensor`` as JAX's ``with_sharding_constraint`` does, and
   :func:`mesh_ops` lets the plain tensors a model makes (positions,
   masks) meet ``DTensor``s as replicated ones.  There is no fallback: a
-  sharding over several distinct devices without a group raises, and a
-  path that cannot be laid out raises; nothing is moved to one card or
-  replicated in silence.
+  sharding over several distinct devices without a group raises, and
+  nothing is moved to one card.  Where a dimension does not divide
+  ``model`` (experts, heads, channels), the model code keeps it whole on
+  ``model``, as GSPMD does where JAX's ``constrain`` drops the axis.
 """
 
 from __future__ import annotations
@@ -404,6 +405,32 @@ def model_group(device_mesh, axis: str = "model"):
     if axis not in (device_mesh.mesh_dim_names or ()):
         raise ValueError(f"the mesh {device_mesh.mesh_dim_names} has no {axis!r} axis")
     return device_mesh.get_group(axis)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: the
+    local gradient of a shard goes back into a DTensor, whose view ops
+    need one."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def local_shard(t: torch.Tensor, grad_placements=None) -> torch.Tensor:
+    """This rank's shard of the ``DTensor`` t, its gradient handed back as
+    a ``DTensor`` with `grad_placements` (default: t's own)."""
+    return _ContiguousGrad.apply(t.to_local(grad_placements=grad_placements))
+
+
+def contiguous_stride(shape) -> tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape` (a ``DTensor``'s global
+    stride where ``DTensor.from_local`` is given its shape)."""
+    return torch.empty(shape, device="meta").stride()
 
 
 def _fit_spec(shape, spec, mesh_shape: dict[str, int]) -> PartitionSpec:

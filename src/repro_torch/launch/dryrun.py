@@ -32,9 +32,8 @@ tensors at the global shape, and records:
     one group and the tail), and ``roofline.combine_unrolled``
     extrapolates to full depth, as JAX's ``--roofline`` does: a
     256-rank DTensor run of the full stack costs too much host time.
-    ``coll_s`` is that run's host seconds.  The dense self-attention
-    archs are counted (slice 10); the others keep 0 with the slice that
-    lays them out in ``raw.coll_note``.  The ``fake`` backend comes from
+    ``coll_s`` is that run's host seconds.  Every arch is counted.  The
+    ``fake`` backend comes from
     ``torch.testing._internal.distributed.fake_pg`` (present in the
     H100 machine's torch 2.11 and in torch 2.13);
   * ``memory.argument_bytes``: each input leaf's shard under its spec,
@@ -143,19 +142,6 @@ class StepCounter(TorchDispatchMode):
         for t in outs:
             self._track(t)
         return out
-
-
-def coll_note(cfg) -> str | None:
-    """None where the port lays `cfg`'s blocks out over a mesh (the
-    self-attention archs, dense or MoE), else why its collectives are not
-    counted: the blocks and the slice that will lay them out."""
-    from repro_torch.models.transformer import mesh_slice
-
-    where = mesh_slice(cfg)
-    if where is None:
-        return None
-    return (f"not counted: {cfg.name}'s {where[1]} blocks are not laid out over a mesh yet "
-            f"(slice {where[0]}, ROADMAP); the collective term is 0")
 
 
 #: c10d functional ops -> JAX's collective kinds
@@ -381,16 +367,14 @@ def run_cell(
             "estimate": "argument and alias bytes exact from the specs; output and temp bytes "
                         "the global run's split evenly over the devices",
         }
-        note = coll_note(cfg)
-        coll = ({"coll_bytes": 0.0, "coll_by_type": None, "coll_counts": None, "coll_s": 0.0}
-                if note else count_collectives(cfg, shape_name, mesh))
+        coll = count_collectives(cfg, shape_name, mesh)
         record["raw"] = {
             "flops": counted["flops"] / n_chips,
             "bytes": counted["bytes"] / n_chips,
             "coll_bytes": coll["coll_bytes"],
             "coll_by_type": coll["coll_by_type"],
             "coll_counts": coll["coll_counts"],
-            "coll_note": note or COLL_NOTE,
+            "coll_note": COLL_NOTE,
             "coll_s": round(coll["coll_s"], 2),
             "flops_global": counted["flops"],
             "flops_counted": "FlopCounterMode: matmuls and attention only",

@@ -21,7 +21,8 @@ from typing import Any
 
 import torch
 
-from repro_torch.distributed.sharding import PartitionSpec as P, constrain, is_dtensor
+from repro_torch.distributed.sharding import (
+    PartitionSpec as P, constrain, contiguous_stride, is_dtensor, local_shard)
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
 
@@ -59,7 +60,7 @@ def _proj_per_shard(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
            for p, q in zip(x_pl, w_pl)]
     shape = torch.Size((*x.shape[:-1], *w.shape[1:]))
     return DTensor.from_local(yl, dm, out, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta").stride())
+                              stride=contiguous_stride(shape))
 
 
 def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tensor):
@@ -73,49 +74,33 @@ def _project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, kv_src: torch.Tenso
     return q, k, v
 
 
-class _ContiguousGrad(torch.autograd.Function):
-    """The identity, whose backward hands on a contiguous gradient: the
-    local gradient of a shard goes back into a DTensor, whose view ops
-    need one."""
-
-    @staticmethod
-    def forward(ctx, x):
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad.contiguous()
-
-
-def local_shard(t: torch.Tensor, grad_placements=None) -> torch.Tensor:
-    """This rank's shard of the ``DTensor`` t, its gradient handed back as
-    a ``DTensor`` with `grad_placements` (default: t's own)."""
-    return _ContiguousGrad.apply(t.to_local(grad_placements=grad_placements))
-
-
 def _per_shard(cfg: ModelConfig, fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """fn(cfg, q, k, v, psum) -> (B, T, nq, hd), run on each rank's shards
     where q, k, v are ``DTensor``s: the batch over the batch axes, and on
-    the ``model`` axis (m ranks) one of three layouts, none of which
-    computes a head twice:
+    the ``model`` axis (m ranks) one of four layouts, the first three of
+    which compute no head twice:
 
     * heads: the query and the kv heads both divide m.  Each rank's query
       heads meet exactly their kv heads; no collective runs inside.
     * kv heads gathered: the query heads divide m and the kv heads do not,
-      and there is more than one query row (train, prefill).  q keeps its
-      heads on ``model``, k and v are gathered whole over it, and each rank
-      attends with the kv heads its query heads read (GQA's kv
-      replication); their gradients go back as partial sums.
+      and there is more than one query row (train, prefill) or head_dim
+      does not divide m.  q keeps its heads on ``model``, k and v are
+      gathered whole over it, and each rank attends with the kv heads its
+      query heads read (GQA's kv replication); their gradients go back as
+      partial sums.
     * head_dim: one query row (decode, whose cache ``decode_state_axes``
       shards on head_dim when the kv heads do not divide m), or query heads
       that do not divide m.  q, k and v are sharded on head_dim; each
       rank's scores are partial sums over its slice of it, all-reduced over
       ``model`` (``psum``) before the scale, the softcap and the softmax,
-      and the output keeps head_dim on ``model``.
+      and the output keeps head_dim on ``model``.  At decode this sends a
+      row of scores a head where gathering would send the whole cache.
+    * whole: head counts and a head_dim that do not divide m.  JAX's
+      ``constrain`` drops ``model`` there and GSPMD keeps the heads whole
+      on it, so every rank of a batch shard attends with all of them.
 
-    Head counts and a head_dim that do not divide m raise.  The masks and
-    the online-softmax loop are plain tensors, which spares DTensor's
-    sharding propagation of every op of the loop."""
+    The masks and the online-softmax loop are plain tensors, which spares
+    DTensor's sharding propagation of every op of the loop."""
     if not is_dtensor(q):
         return fn(cfg, q, k, v, None)
     from torch.distributed.tensor import DTensor, Partial, Replicate
@@ -133,14 +118,12 @@ def _per_shard(cfg: ModelConfig, fn, q: torch.Tensor, k: torch.Tensor, v: torch.
     elif cfg.head_dim % m == 0:
         layout = "head_dim"
     else:
-        raise NotImplementedError(
-            f"{cfg.name}: {nq} query heads, {nkv} kv heads and head_dim {cfg.head_dim} have "
-            f"no attention layout over a model axis of {m}")
+        layout = "whole"
     batch = ("pod", "data")
+    whole = P(batch, None, None, None)
     by_heads, by_hd = P(batch, None, "model", None), P(batch, None, None, "model")
-    q = constrain(q, by_hd if layout == "head_dim" else by_heads)
-    kv_spec = {"heads": by_heads, "kv_gathered": P(batch, None, None, None),
-               "head_dim": by_hd}[layout]
+    q = constrain(q, {"head_dim": by_hd, "whole": whole}.get(layout, by_heads))
+    kv_spec = {"heads": by_heads, "kv_gathered": whole, "head_dim": by_hd, "whole": whole}[layout]
     k, v = constrain(k, kv_spec), constrain(v, kv_spec)
 
     def on_model(t, p) -> list:
@@ -163,16 +146,19 @@ def _per_shard(cfg: ModelConfig, fn, q: torch.Tensor, k: torch.Tensor, v: torch.
         kl, vl = (local_shard(t, on_model(t, Partial()))[:, :, lo:hi] for t in (k, v))
     else:
         lcfg, (ql, kl, vl) = cfg, (local_shard(t) for t in (q, k, v))
+    if layout == "head_dim":
         partial, summed = on_model(q, Partial()), on_model(q, Replicate())
 
         def psum(scores):  # dim 0 is the batch, as in q
+            # every rank uses the summed scores with its own head_dim block
+            # of v, so their gradient is a partial sum over ``model``
             return (DTensor.from_local(scores, dm, partial, run_check=False)
-                    .redistribute(dm, summed).to_local())
+                    .redistribute(dm, summed).to_local(grad_placements=partial))
 
     out = fn(lcfg, ql, kl, vl, psum).contiguous()
     full = (q.shape[0], q.shape[1], nq, cfg.head_dim)
     return DTensor.from_local(out, dm, q.placements, run_check=False, shape=torch.Size(full),
-                              stride=torch.empty(full, device="meta").stride())
+                              stride=contiguous_stride(full))
 
 
 def _gqa_scores(cfg: ModelConfig, q: torch.Tensor, k: torch.Tensor, psum=None) -> torch.Tensor:
@@ -284,7 +270,32 @@ def _attend_blocked(
 def _out_proj(p: dict, attn_out: torch.Tensor, dtype) -> torch.Tensor:
     """einsum("btnh,nhd->btd")."""
     wo = p["wo"].to(dtype)
+    if is_dtensor(attn_out) and any(q.is_shard(3) for q in attn_out.placements):
+        return _out_proj_per_shard(attn_out, wo)
     return attn_out.flatten(-2) @ wo.reshape(-1, wo.shape[-1])
+
+
+def _out_proj_per_shard(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """:func:`_out_proj` of an attention output sharded on its head_dim
+    (``_per_shard``'s head_dim layout), on each rank's shards: torch 2.11
+    refuses the flatten of (heads, head_dim) with head_dim sharded.  Each
+    rank multiplies its head_dim block by the same block of ``wo``'s rows
+    (gathered over its other dims), and the partial outputs are summed
+    over the ranks that split head_dim (a row-parallel product)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    dm = x.device_mesh
+    x_pl = [p if p.is_shard(0) or p.is_shard(3) else Replicate() for p in x.placements]
+    w_pl = [Shard(1) if p.is_shard(3) else Replicate() for p in x_pl]
+    x, w = x.redistribute(dm, x_pl), w.redistribute(dm, w_pl)
+    xl = local_shard(x)
+    wl = local_shard(w, [Partial() if p.is_shard(0) else q for p, q in zip(x_pl, w_pl)])
+    yl = xl.flatten(-2) @ wl.reshape(-1, wl.shape[-1])
+    out = [Partial() if p.is_shard(3) else p for p in x_pl]
+    shape = torch.Size((*x.shape[:2], w.shape[-1]))
+    y = DTensor.from_local(yl, dm, out, run_check=False, shape=shape,
+                           stride=contiguous_stride(shape))
+    return y.redistribute(dm, [Replicate() if p.is_partial() else p for p in out])
 
 
 def _use_blocked(cfg: ModelConfig, t: int) -> bool:
@@ -393,7 +404,8 @@ def cross_attention(
 
     No RoPE, no causal mask.  prefill computes and caches the context
     K/V; decode reuses them unchanged.  The output is gated by
-    tanh(gate), which opens at 0.
+    tanh(gate), which opens at 0.  On a mesh the context is laid out over
+    the batch axes as x is, and the heads attend per shard (:func:`_per_shard`).
     """
     dt = x.dtype
     if mode in ("train", "prefill"):
@@ -411,10 +423,11 @@ def cross_attention(
         new_cache = cache
     t = q.shape[1]
     if _use_blocked(cfg, t):
-        out = _attend_blocked(cfg, q, k, v, causal=False)
+        out = _per_shard(cfg, lambda c, q, k, v, psum: _attend_blocked(
+            c, q, k, v, causal=False, psum=psum), q, k, v)
     else:
         mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=x.device)
-        out = _attend(cfg, q, k, v, mask)
+        out = _per_shard(cfg, lambda c, q, k, v, psum: _attend(c, q, k, v, mask, psum), q, k, v)
     y = _out_proj(p, out, dt)
     gate = torch.tanh(p["gate"].float()).to(dt)
     return y * gate, new_cache

@@ -38,9 +38,9 @@ from repro_torch.distributed.sharding import (
     constrain,
     get_current_mesh,
     is_dtensor,
+    local_shard,
     model_group,
 )
-from repro_torch.models.attention import local_shard
 from repro_torch.models.config import ModelConfig
 
 
@@ -158,34 +158,33 @@ def _moe_ffn_local(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh) -> tuple[to
 def _moe_ffn_on_ranks(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`moe_ffn` of a ``DTensor`` x: JAX's choice between its two
     dispatches, on x's mesh.  Experts that do not divide the ``model``
-    axis raise: the expert buffer would have no layout over it."""
+    axis take JAX's gspmd dispatch, whose ``P("model", …)`` constraint JAX
+    then drops: every rank computes every expert."""
     dm = x.device_mesh
     shape = dict(zip(dm.mesh_dim_names, dm.shape))
-    m_size = shape.get("model", 1)
-    if cfg.moe_experts % m_size:
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.moe_experts} experts do not divide a model axis of {m_size}: "
-            "the expert buffer has no layout over it")
+    split = cfg.moe_experts % shape.get("model", 1) == 0
     batch_axes = tuple(a for a in ("pod", "data") if a in shape)
     n_shards = math.prod(shape[a] for a in batch_axes)
-    if cfg.moe_impl == "local" and "model" in shape and x.shape[0] % n_shards == 0:
+    if split and cfg.moe_impl == "local" and "model" in shape and x.shape[0] % n_shards == 0:
         return _moe_ffn_exchange(cfg, p, x, batch_axes)
-    return _moe_ffn_owners(cfg, p, x)  # JAX's gspmd, and its fallback of a batch that does not divide
+    # JAX's gspmd, and its fallback of a batch that does not divide
+    return _moe_ffn_owners(cfg, p, x, split)
 
 
-def _weights_local(p: dict, dm) -> tuple[torch.Tensor, dict]:
+def _weights_local(p: dict, dm, split: bool = True) -> tuple[torch.Tensor, dict]:
     """The router whole and this rank's experts (El, D, F), each gathered
     from the rules' layout: the experts on ``model`` (dim 0), replicated
-    elsewhere, as JAX's ``in_specs`` ``P("model", None, None)`` force.  The
-    local gradients are partial sums over the ranks that share the block
-    (every rank for the router), as each rank weighs its own rows."""
+    elsewhere, as JAX's ``in_specs`` ``P("model", None, None)`` force, or
+    all E of them where not `split`.  The local gradients are partial sums
+    over the ranks that share the block (every rank for the router), as
+    each rank weighs its own rows."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     names = dm.mesh_dim_names
     whole = [Replicate()] * dm.ndim
     router = local_shard(p["router"].redistribute(dm, whole), [Partial()] * dm.ndim)
-    on = [Shard(0) if n == "model" else Replicate() for n in names]
-    grad = [Shard(0) if n == "model" else Partial() for n in names]
+    on = [Shard(0) if n == "model" and split else Replicate() for n in names]
+    grad = [Shard(0) if n == "model" and split else Partial() for n in names]
     experts = {k: local_shard(p[k].redistribute(dm, on), grad) for k in ("w_gate", "w_up", "w_down")}
     return router, experts
 
@@ -314,12 +313,14 @@ def _moe_ffn_exchange(cfg: ModelConfig, p: dict, x: torch.Tensor,
     return y, _replicated(_MeanOverRanks.apply(aux, dm), dm)
 
 
-def _moe_ffn_owners(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _moe_ffn_owners(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    split: bool = True) -> tuple[torch.Tensor, torch.Tensor]:
     """JAX's gspmd path on a mesh of ranks: the tokens gathered whole
     (over the batch axes), routed once on every rank, each rank computing
     its El experts of the (E, C, D) buffer (the buffer on ``model``, as
     JAX constrains it), and the experts' outputs all-gathered over
-    ``model`` before the combine.  Every rank computes the same y, and
+    ``model`` before the combine; where not `split` (the experts do not
+    divide ``model``) every rank computes all E.  Every rank computes the same y, and
     passes 1/N of its gradient (N ranks), so that every local gradient
     is a partial sum over the mesh: the all-gather's backward sums the
     ``model`` ranks' shares, and the expert gradients are partial over
@@ -330,9 +331,9 @@ def _moe_ffn_owners(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple[torch.T
     names = dm.mesh_dim_names
     b, t, d = x.shape
     n_all = dm.size()
-    m_size = dm.size(names.index("model")) if "model" in names else 1
+    m_size = dm.size(names.index("model")) if "model" in names and split else 1
     el = cfg.moe_experts // m_size
-    router, w = _weights_local(p, dm)
+    router, w = _weights_local(p, dm, split)
     xl = local_shard(x.redistribute(dm, [Replicate()] * dm.ndim), [Partial()] * dm.ndim)
     tokens = xl.reshape(b * t, d)
     buf, info, aux = _dispatch_local(cfg, tokens, tokens.float() @ router.float(),

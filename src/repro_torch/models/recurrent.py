@@ -15,6 +15,12 @@ Train/prefill runs the recurrence as a log-depth (Hillis-Steele) scan
 over the sequence; JAX's ``lax.associative_scan`` combines in another
 tree, so the two agree to float32 rounding, not bit for bit.  Decode is
 a single step.  State per layer is (B, W), constant in sequence length.
+
+On a mesh (x a ``DTensor``) the block runs on each rank's batch shard and
+its block of the W channels (``per_shard``): the conv, the gates' scan and
+the decode step are per channel; the gates' products with ``w_rx`` and
+``w_ix``, whose rows are the rank's channels, are partial sums that are
+reduce-scattered back to its channels.
 """
 
 from __future__ import annotations
@@ -22,10 +28,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.per_shard import Shards
 
 _C = 8.0  # Griffin's fixed gate exponent
+#: the W dim of each leaf and each state (``per_shard``)
+_DIMS = {"w_in": 1, "w_gate_in": 1, "conv_w": 1, "conv_b": 0, "w_rx": 0, "b_rx": 0,
+         "w_ix": 0, "b_ix": 0, "lam": 0, "w_out": 0}
+_STATE_DIMS = {"h": 1, "conv": 2}
 
 
 def _conv_causal(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -40,22 +52,25 @@ def _conv_causal(p: dict, x: torch.Tensor) -> torch.Tensor:
     return out + p["conv_b"].to(dt)
 
 
-def _lru_coeffs(p: dict, xc: torch.Tensor):
-    """Gate math in fp32; returns (a, b) with h_t = a_t h + b_t."""
+def _lru_coeffs(p: dict, xc: torch.Tensor, psum=None):
+    """Gate math in fp32; returns (a, b) with h_t = a_t h + b_t.  `psum`,
+    where given, sums the gates' partial products over the ranks that hold
+    the other channels and keeps this rank's (``Shards.sum_scatter``)."""
     xf = xc.float()
-    r = torch.sigmoid(xf @ p["w_rx"].float() + p["b_rx"].float())
-    i = torch.sigmoid(xf @ p["w_ix"].float() + p["b_ix"].float())
+    psum = psum or (lambda t: t)
+    r = torch.sigmoid(psum(xf @ p["w_rx"].float()) + p["b_rx"].float())
+    i = torch.sigmoid(psum(xf @ p["w_ix"].float()) + p["b_ix"].float())
     log_a = -_C * F.softplus(p["lam"].float()) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
     return a, b
 
 
-def rglru_scan(p: dict, xc: torch.Tensor, h0: torch.Tensor | None = None):
+def rglru_scan(p: dict, xc: torch.Tensor, h0: torch.Tensor | None = None, psum=None):
     """Scan the linear recurrence over seq. xc: (B, T, W).
 
     Returns (y (B,T,W) fp32, h_last (B,W) fp32)."""
-    a, h = _lru_coeffs(p, xc)
+    a, h = _lru_coeffs(p, xc, psum)
     if h0 is not None:
         # Fold the carried state into the first step: h_1 = a_1 h0 + b_1.
         h = h.clone()
@@ -71,9 +86,9 @@ def rglru_scan(p: dict, xc: torch.Tensor, h0: torch.Tensor | None = None):
     return h, h[:, -1]
 
 
-def rglru_step(p: dict, xc: torch.Tensor, h: torch.Tensor):
+def rglru_step(p: dict, xc: torch.Tensor, h: torch.Tensor, psum=None):
     """One decode step. xc: (B, 1, W); h: (B, W) fp32."""
-    a, b = _lru_coeffs(p, xc)
+    a, b = _lru_coeffs(p, xc, psum)
     h_new = a[:, 0] * h.float() + b[:, 0]
     return h_new[:, None], h_new
 
@@ -87,6 +102,16 @@ def recurrent_block(
     state: dict | None = None,
 ) -> tuple[torch.Tensor, dict | None]:
     """The full Griffin recurrent mixer.  state = {"h": (B,W), "conv": (B,cw-1,W)}."""
+    if is_dtensor(x):
+        sh = Shards(x, cfg.rec_dim)
+        y, new = _block(cfg, sh.weights(p, _DIMS), sh.x, mode=mode,
+                        state=sh.states(state, _STATE_DIMS), psum=sh.sum_scatter)
+        return sh.out(y), sh.new_states(new, _STATE_DIMS)
+    return _block(cfg, p, x, mode=mode, state=state)
+
+
+def _block(cfg: ModelConfig, p: dict, x: torch.Tensor, *, mode: str, state: dict | None,
+           psum=None) -> tuple[torch.Tensor, dict | None]:
     dt = x.dtype
     cw = cfg.conv_width
     xr = x @ p["w_in"].to(dt)  # (B, T, W)
@@ -94,7 +119,7 @@ def recurrent_block(
 
     if mode in ("train", "prefill"):
         xc = _conv_causal(p, xr)
-        y, h_last = rglru_scan(p, xc)
+        y, h_last = rglru_scan(p, xc, psum=psum)
         out = (y.to(dt) * gate) @ p["w_out"].to(dt)
         if mode == "train":
             return out, None
@@ -109,7 +134,7 @@ def recurrent_block(
     # decode: conv over the (cw-1) carried inputs + the new one
     hist = torch.cat([state["conv"].to(dt), xr], dim=1)  # (B, cw, W)
     xc = (torch.einsum("bcw,cw->bw", hist, p["conv_w"].to(dt)) + p["conv_b"].to(dt))[:, None]
-    y, h_new = rglru_step(p, xc, state["h"])
+    y, h_new = rglru_step(p, xc, state["h"], psum)
     out = (y.to(dt) * gate) @ p["w_out"].to(dt)
     return out, {"h": h_new, "conv": hist[:, 1:]}
 

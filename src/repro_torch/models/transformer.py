@@ -30,12 +30,13 @@ input over the batch axes, the logits over the batch axes and ``model``
 on the vocab), and DTensor's sharding propagation does the rest, as GSPMD
 does for JAX.  The stacked ``layers`` axis is never sharded (JAX's
 rule), so unbinding it needs no collective.  The loss over vocab-sharded
-logits takes JAX's form there (``_ce_chunk``).  A prefill lays its KV
+logits takes JAX's form there (``_ce_chunk``).  A prefill lays its
 caches out by ``decode_state_axes`` through ``param_spec``'s ``batch``
-rule.  The dense self-attention archs and the MoE archs are laid out
-(the experts over ``model``, exchanged by all-to-all: ``moe``); RG-LRU,
-xLSTM and cross-attention blocks and embedding input on a mesh of more
-than one rank raise ``NotImplementedError`` (slice 10c, ROADMAP).
+rule.  Every arch is laid out: attention (self and cross) computes per
+shard (``attention._per_shard``), the experts lie over ``model`` and are
+exchanged by all-to-all (``moe``), the RG-LRU and xLSTM mixers run on each
+rank's batch shard and its channels or heads (``per_shard``), and an
+embedding input arrives laid out over the batch axes as tokens do.
 """
 
 from __future__ import annotations
@@ -55,6 +56,7 @@ from repro_torch.distributed.sharding import (
     PartitionSpec as P,
     constrain,
     constrain_logical,
+    contiguous_stride,
     is_dtensor,
     mesh_ops,
 )
@@ -123,12 +125,7 @@ def apply_block(
     elif kind == "rec":
         y, new_mc = recurrent.recurrent_block(cfg, p["mixer"], h, mode=mode, state=mixer_cache)
     elif kind == "mlstm":
-        if mode == "decode":
-            y, new_mc = xlstm.mlstm_step(cfg, p["mixer"], h, mixer_cache)
-        else:
-            y, new_mc = xlstm.mlstm_chunkwise(
-                cfg, p["mixer"], h, None, return_state=(mode == "prefill")
-            )
+        y, new_mc = xlstm.mlstm_block(cfg, p["mixer"], h, mixer_cache, mode=mode)
     elif kind == "slstm":
         y, new_mc = xlstm.slstm_block(cfg, p["mixer"], h, mixer_cache, mode=mode)
     else:
@@ -214,7 +211,16 @@ def _tree_write(dst: Tree, i: int, src: Tree) -> None:
         if isinstance(v, dict):
             _tree_write(v, i, src[k])
         elif _ptr(src[k]) != _ptr(v[i]):
-            v[i].copy_(src[k])
+            _copy_into(v[i], src[k])
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst.copy_(src); on a mesh each rank copies its shard of src, laid
+    out as dst, into dst's local storage."""
+    if is_dtensor(dst):
+        dst.to_local().copy_(src.redistribute(dst.device_mesh, dst.placements).to_local())
+    else:
+        dst.copy_(src)
 
 
 def _ptr(t: torch.Tensor) -> int:
@@ -236,7 +242,6 @@ def run_stack(
 ) -> tuple[torch.Tensor, Tree | None, torch.Tensor]:
     """Apply all layers.  Returns (x, new_caches, aux_loss).  In decode
     mode the group caches of `caches` are updated in place and returned."""
-    check_mesh_support(cfg, x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     with_cache = mode != "train"
     kw = dict(mode=mode, positions=positions, ctx=ctx, pos=pos, max_len=max_len)
@@ -328,7 +333,7 @@ def _lookup_per_shard(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor
            for t, q in zip(t_pl, e_pl)]
     shape = torch.Size((*tokens.shape, embed.shape[1]))
     y = DTensor.from_local(rows, dm, out, run_check=False, shape=shape,
-                           stride=torch.empty(shape, device="meta").stride())
+                           stride=contiguous_stride(shape))
     return y.redistribute(dm, [Replicate() if p.is_partial() else p for p in out])
 
 
@@ -376,6 +381,8 @@ def _ce_chunk(cfg: ModelConfig, w: torch.Tensor, h: torch.Tensor, labels: torch.
     once per chunk."""
     logits = _logits(cfg, w, h)
     if is_dtensor(logits):
+        from torch.distributed.tensor import Replicate
+
         # On a mesh the logits' vocab is sharded over ``model`` (JAX
         # transformer.py:220), and the loss takes JAX's form so that no
         # rank gathers them: the max and the sum of the logsumexp and the
@@ -384,8 +391,15 @@ def _ce_chunk(cfg: ModelConfig, w: torch.Tensor, h: torch.Tensor, labels: torch.
         # ``loss_parallel`` is not used: it takes logits sharded on the
         # class dim of a 1-d mesh, and these are sharded over the batch
         # axes as well.
+        # The sum of the exponentials is made whole on every rank before the
+        # log: where the log's input is left ``Partial`` on a mesh with
+        # data > 1, torch 2.11's DTensor divides its gradient by each
+        # rank's partial sum.
         m = logits.detach().amax(-1, keepdim=True)
-        logz = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+        z = torch.exp(logits - m).sum(-1)
+        z = z.redistribute(z.device_mesh, [Replicate() if p.is_partial() else p
+                                           for p in z.placements])
+        logz = torch.log(z) + m[..., 0]
         vocab = torch.arange(logits.shape[-1], device=logits.device)
         gold = (logits * (labels[..., None].long() == vocab)).sum(-1)
     else:
@@ -398,29 +412,6 @@ def _ce_chunk(cfg: ModelConfig, w: torch.Tensor, h: torch.Tensor, labels: torch.
         gold = torch.take_along_dim(logits, labels[..., None].long(), dim=-1)[..., 0]
     ce = (logz - gold) * mask
     return ce.sum(), mask.sum()
-
-
-def mesh_slice(cfg: ModelConfig) -> tuple[str, str] | None:
-    """None where the port lays `cfg`'s blocks out over a mesh of more
-    than one rank (the self-attention archs on token input, dense or
-    MoE), else (the slice that will, the blocks): RG-LRU, xLSTM,
-    cross-attention and embedding input are slice 10c (ROADMAP §1)."""
-    kinds = sorted(set(cfg.layer_pattern + cfg.tail_pattern) - {"attn", "local"})
-    if cfg.input_mode != "tokens":
-        kinds.append(f"{cfg.input_mode}-input")
-    return ("10c", "/".join(kinds)) if kinds else None
-
-
-def check_mesh_support(cfg: ModelConfig, x: torch.Tensor) -> None:
-    """Raise where `x` is laid out over more than one rank and `cfg` has a
-    block this slice does not lay out (:func:`mesh_slice`)."""
-    if not is_dtensor(x) or x.device_mesh.size() <= 1:
-        return
-    where = mesh_slice(cfg)
-    if where is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: {where[1]} blocks on a mesh of {x.device_mesh.size()} ranks are "
-            f"slice {where[0]} (ROADMAP)")
 
 
 def on_mesh(fn):

@@ -13,6 +13,16 @@ Training/prefill uses the chunkwise-parallel form: a loop over chunks of
 decay-masked attention matrix.  `mlstm_step` is the exact stepwise
 recurrence.  sLSTM has true hidden-to-gate recurrence (R h_{t-1}): a
 loop over steps, O(T) depth, O(1) state.
+
+On a mesh (x a ``DTensor``) both blocks run on each rank's batch shard and
+its block of the heads (``per_shard``): the chunkwise mLSTM and the
+sLSTM's loop over steps are per head, so each runs on local tensors with
+no collective inside.  The mLSTM's weights keep the rules' layout: the
+rank's block of ``inner`` is all-gathered for its q, k, v and gates, which
+contract over all of it, and the output gate's partial products (``w_o``
+by the rows of that block) are reduce-scattered to its heads' columns;
+``w_down`` and the sLSTM's ``w_out`` are taken by the rows of its heads,
+whose partial outputs are all-reduced.
 """
 
 from __future__ import annotations
@@ -22,10 +32,18 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import is_dtensor
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.per_shard import Shards
 
 NEG_INF = -1e30
+#: the heads dim of each leaf and each state (``per_shard``); None: taken whole
+_MLSTM_DIMS = {"w_in": 1, "w_q": 1, "w_k": 1, "w_v": 1, "w_i": 1, "b_i": 0, "w_f": 1,
+               "b_f": 0, "w_o": 0, "h_norm": None, "w_down": 0}
+_MLSTM_STATE_DIMS = {"c": 1, "n": 1, "m": 1}
+_SLSTM_DIMS = {"w_x": 2, "r_h": 1, "b": 1, "h_norm": None, "w_out": 0}
+_SLSTM_STATE_DIMS = {"c": 1, "n": 1, "m": 1, "h": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -38,11 +56,17 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(w.shape[0], -1)).unflatten(-1, w.shape[1:])
 
 
-def _mlstm_qkvif(cfg: ModelConfig, p: dict, x: torch.Tensor):
-    """x: (B, T, D) -> q,k,v (B,T,nh,hd) fp32; itil,logf (B,T,nh) fp32; o gate; inner."""
+def _mlstm_qkvif(cfg: ModelConfig, p: dict, x: torch.Tensor, sh: Shards | None = None):
+    """x: (B, T, D) -> q,k,v (B,T,nh,hd) fp32; itil,logf (B,T,nh) fp32; o gate; inner.
+    `sh`, on a mesh: ``inner`` is this rank's block, gathered for q, k, v
+    and the gates, and the output gate's partial products are summed and
+    split to the rank's heads."""
     dt = x.dtype
     inner = x @ p["w_in"].to(dt)  # (B, T, inner)
+    o_pre = inner @ p["w_o"].to(dt)
     innf = inner.float()
+    if sh is not None:  # the float32 operand of JAX's q, k, v and gate products
+        innf, o_pre = sh.gather(innf), sh.sum_scatter(o_pre)
     q = _heads(innf, p["w_q"].float())
     k = _heads(innf, p["w_k"].float())
     v = _heads(innf, p["w_v"].float())
@@ -50,7 +74,7 @@ def _mlstm_qkvif(cfg: ModelConfig, p: dict, x: torch.Tensor):
     itil = innf @ p["w_i"].float() + p["b_i"].float()
     ftil = innf @ p["w_f"].float() + p["b_f"].float()
     logf = F.logsigmoid(ftil)  # (B, T, nh)
-    o = torch.sigmoid(inner @ p["w_o"].to(dt))  # (B, T, inner)
+    o = torch.sigmoid(o_pre)  # (B, T, inner)
     return q, k, v, itil, logf, o, inner
 
 
@@ -105,6 +129,25 @@ def _chunk_step(carry, qj, kj, vj, ij, fj):
     return (c_new, n_new, m_end), h
 
 
+def mlstm_block(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict | None = None, *,
+                mode: str):
+    """The mLSTM mixer: chunkwise over a sequence (train, prefill; the
+    prefill returns its state) or one step (decode)."""
+    if is_dtensor(x):
+        sh = Shards(x, cfg.n_heads)
+        y, new = _mlstm(cfg, sh.weights(p, _MLSTM_DIMS), sh.x,
+                        sh.states(state, _MLSTM_STATE_DIMS), mode=mode, sh=sh)
+        return sh.out(y), sh.new_states(new, _MLSTM_STATE_DIMS)
+    return _mlstm(cfg, p, x, state, mode=mode)
+
+
+def _mlstm(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict | None, *, mode: str,
+           sh: Shards | None = None):
+    if mode == "decode":
+        return mlstm_step(cfg, p, x, state, sh=sh)
+    return mlstm_chunkwise(cfg, p, x, None, return_state=(mode == "prefill"), sh=sh)
+
+
 def mlstm_chunkwise(
     cfg: ModelConfig,
     p: dict,
@@ -112,10 +155,11 @@ def mlstm_chunkwise(
     state: dict | None = None,
     *,
     return_state: bool,
+    sh: Shards | None = None,
 ):
     """Chunkwise-parallel mLSTM. x: (B, T, D)."""
     dt = x.dtype
-    q, k, v, itil, logf, o, _ = _mlstm_qkvif(cfg, p, x)
+    q, k, v, itil, logf, o, _ = _mlstm_qkvif(cfg, p, x, sh)
     b, t, nh, hd = q.shape
     ck = min(cfg.chunk_size, t)
     if t % ck:  # fall back to the largest divisor (odd test lengths)
@@ -139,10 +183,11 @@ def mlstm_chunkwise(
     return out, None
 
 
-def mlstm_step(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict):
+def mlstm_step(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict,
+               sh: Shards | None = None):
     """Exact stepwise mLSTM decode. x: (B, 1, D)."""
     dt = x.dtype
-    q, k, v, itil, logf, o, _ = _mlstm_qkvif(cfg, p, x)
+    q, k, v, itil, logf, o, _ = _mlstm_qkvif(cfg, p, x, sh)
     q, k, v = q[:, 0], k[:, 0], v[:, 0]  # (B, nh, hd)
     itil, logf = itil[:, 0], logf[:, 0]  # (B, nh)
     c, n, m = state["c"], state["n"], state["m"]
@@ -209,10 +254,19 @@ def slstm_block(
     mode: str,
 ):
     """sLSTM over a sequence (a loop over steps) or one step (decode)."""
+    if is_dtensor(x):
+        sh = Shards(x, cfg.n_heads)
+        y, new = _slstm(cfg, sh.weights(p, _SLSTM_DIMS), sh.x,
+                        sh.states(state, _SLSTM_STATE_DIMS), mode=mode)
+        return sh.out(y), sh.new_states(new, _SLSTM_STATE_DIMS)
+    return _slstm(cfg, p, x, state, mode=mode)
+
+
+def _slstm(cfg: ModelConfig, p: dict, x: torch.Tensor, state: dict | None, *, mode: str):
     dt = x.dtype
-    b, t, d = x.shape
-    nh = cfg.n_heads
-    hd = d // nh
+    b, t, _ = x.shape
+    nh = p["w_x"].shape[2]  # this rank's heads on a mesh
+    hd = cfg.d_model // cfg.n_heads
     if state is None:
         state = init_slstm_state_dims(b, nh, hd, x.device)
     xg = _slstm_x(p, x)  # (B, T, 4, nh, hd)
@@ -226,7 +280,7 @@ def slstm_block(
             state = _slstm_cell(p, xg[:, i], state)
             hs.append(state["h"])
         h = torch.stack(hs, dim=1)  # (B, T, nh, hd)
-    h = layers.rms_norm(h, p["h_norm"]).reshape(*h.shape[:2], d).to(dt)
+    h = layers.rms_norm(h, p["h_norm"]).flatten(2).to(dt)
     out = h @ p["w_out"].to(dt)
     if mode == "train":
         return out, None

@@ -95,13 +95,14 @@ class _ScriptedTarget:
 
 class _Clock:
     """Deterministic stand-in for the `time` module of an aggregator: each
-    perf_counter() call advances 0.125 s."""
+    perf_counter() call advances `step` seconds (0 holds the clock still)."""
 
-    def __init__(self):
+    def __init__(self, step: float = 0.125):
         self.t = 1000.0
+        self.step = step
 
     def perf_counter(self):
-        self.t += 0.125
+        self.t += self.step
         return self.t
 
     def sleep(self, s):
@@ -399,7 +400,10 @@ def test_aggregator_server_routes_end_to_end(owned):
         assert exc.value.status == status, (method, path)
 
 
-def test_fleet_prometheus_families_render():
+def test_fleet_prometheus_families_render(monkeypatch):
+    # the clock stands still between the scrape and the render: no wall
+    # time under load can age the target past its 30 ms staleness window
+    monkeypatch.setattr(tagg, "time", _Clock(step=0.0))
     target = _ScriptedTarget("t", [{
         "metrics": {"m": {
             "serving": _serving_state(n_requests=2, latencies=[0.01, 0.02]),

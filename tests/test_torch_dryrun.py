@@ -19,11 +19,10 @@ compiling the same cells in subprocesses with 8 host devices.
 * The collective bytes that the port's sharded step sends
   (``dryrun.count_collectives``: the step on ``DTensor``s over the mesh,
   ``fake`` backend) hold to ``roofline.collective_bytes`` of XLA's
-  partitioned program of the same cell, every loop unrolled, for the archs
-  the port lays out over a mesh: non-zero for every kind XLA's is, and the
-  total within COLL_RATIO of XLA's.  The others keep 0, their note naming
-  the slice that will lay them out.  ``test_torch_dryrun_coll.py`` does the
-  same for the other three such archs.
+  partitioned program of the same cell, every loop unrolled, for every
+  arch: non-zero for every kind XLA's is, and the total within COLL_RATIO
+  of XLA's.  ``test_torch_dryrun_coll.py`` and
+  ``test_torch_dryrun_coll_moe.py`` do the same for more cells.
 
 The flop counts on meta against CPU tensors and ``run_hdc`` are in
 ``test_torch_dryrun_hdc.py``, ``main`` and the roofline terms in
@@ -207,38 +206,62 @@ def test_counted_flops_and_bytes_hold_to_xla_with_every_loop_unrolled(jax_side, 
 #: decode smoke cells of qwen3-0.6b, qwen3-32b, gemma-7b and gemma3-12b on this
 #: mesh, jax 0.9.0: 0.60-1.80; the MoE archs' train and decode cells 0.50-0.54,
 #: as XLA on the CPU carries their bf16 all-to-alls in float32, at twice the
-#: port's bytes: ``test_torch_dryrun_coll_moe.py``).  The port's step is eager PyTorch over
+#: port's bytes: ``test_torch_dryrun_coll_moe.py``; the RG-LRU, xLSTM,
+#: cross-attention and embedding-input cells 0.50-1.14:
+#: ``test_torch_dryrun_coll_rec.py``).  The port's step is eager PyTorch over
 #: DTensors: it all-gathers where GSPMD keeps a layout, reduce-scatters the
 #: gradients of replicated weights that XLA all-reduces, and sums the clip's
 #: squares leaf by leaf, so its kinds and counts differ from XLA's while the
 #: bytes stay within a factor of 2 either way.
 COLL_RATIO = (0.5, 2.0)
+#: XLA's kinds that the port's step cannot send: DTensor's redistributions
+#: issue no collective-permute.  XLA sends one where it splits a dim that
+#: lies over ``model`` (the rope's halves of a head_dim-sharded q, the
+#: recurrent blocks' shifted slices), from 1 KB (recurrentgemma-2b x
+#: decode_32k) to 17 MB (its train_4k, 0.5% of the cell's bytes); the port
+#: keeps those dims whole or moves them by another kind, and XLA's permutes
+#: count in the band's total.
+NOT_SENT = ("collective-permute",)
+#: XLA's kinds of a cell that the port moves by another one: recurrentgemma-2b's
+#: one kv head does not divide ``model``, so k is sharded on head_dim, and XLA
+#: concatenates the rope's halves of it by all-to-alls (33.5 MB of 3.24 GB at
+#: train_4k, jax 0.9.0) where the port gathers k whole; they count in the
+#: band's total
+XLA_ONLY = {("recurrentgemma-2b", "train_4k"): ("all-to-all",)}
+#: cells held to a band of their own, each with its reason.
+#: recurrentgemma-2b x decode_32k: its one kv head does not divide ``model``,
+#: so the cache is sharded on head_dim.  At decode XLA all-gathers that cache
+#: (41.9 MB of its 42.1 MB, jax 0.9.0) and the port all-reduces each head's
+#: one row of float32 partial scores instead (``attention._per_shard``'s
+#: head_dim layout: 16.8 MB, 0.40 of XLA's total), which is the layout that
+#: sends the least at decode where the kv heads do not divide ``model``.
+CELL_RATIO = {("recurrentgemma-2b", "decode_32k"): (0.35, 2.0)}
 
 
-def port_collectives(cfg, shape_name: str, mesh) -> dict | None:
-    """The port's collective count of a cell, or None, after checking its
-    note, for an arch the port does not lay out over a mesh."""
+def port_collectives(cfg, shape_name: str, mesh) -> dict:
+    """The port's collective count of a cell."""
     from repro_torch.launch import dryrun
 
-    note = dryrun.coll_note(cfg)
-    if note is not None:
-        assert "not counted" in note and ("slice 10b" in note or "slice 10c" in note), note
-        return None
     return dryrun.count_collectives(cfg, shape_name, mesh)
 
 
-def check_collectives(got: dict, xla: dict) -> None:
-    """The port's count against XLA's ``collective_bytes`` (``COLL_RATIO``)."""
+def check_collectives(got: dict, xla: dict, cell: tuple[str, str]) -> None:
+    """The port's count of the (arch, shape) `cell` against XLA's
+    ``collective_bytes`` (``COLL_RATIO`` or ``CELL_RATIO``, ``NOT_SENT``,
+    ``XLA_ONLY``)."""
     from repro_torch.analysis import roofline
 
     kinds = {k: v for k, v in xla.items() if k != "_counts"}
     assert set(got["coll_by_type"]) == set(kinds) == set(roofline.COLLECTIVE_OPS)
     assert set(got["coll_counts"]) == set(kinds)
+    total = sum(kinds.values())
     for kind, n in kinds.items():
-        if n:
+        if n and kind not in NOT_SENT + XLA_ONLY.get(cell, ()):
             assert got["coll_by_type"][kind] > 0, (kind, got["coll_by_type"])
-    ratio = got["coll_bytes"] / sum(kinds.values())
-    assert COLL_RATIO[0] <= ratio <= COLL_RATIO[1], f"collective bytes are {ratio:.3f} of XLA's"
+    assert all(got["coll_by_type"][kind] == 0 for kind in NOT_SENT), got["coll_by_type"]
+    ratio = got["coll_bytes"] / total
+    lo, hi = CELL_RATIO.get(cell, COLL_RATIO)
+    assert lo <= ratio <= hi, f"collective bytes are {ratio:.3f} of XLA's"
 
 
 @pytest.mark.parametrize("arch,shape_name", CELLS)
@@ -251,5 +274,4 @@ def test_collective_bytes_hold_to_xla_or_name_the_slice_that_counts_them(jax_sid
     kw = dict(attn_block_q=PREFILL_BLOCK, attn_block_kv=PREFILL_BLOCK) if "prefill" in shape_name else {}
     cfg = dataclasses.replace(get_smoke_config(arch), **kw)
     got = port_collectives(cfg, shape_name, meta_mesh((2, 2, 2), ("pod", "data", "model")))
-    if got is not None:
-        check_collectives(got, jax_side["costs"][f"{arch} {shape_name}"]["coll"])
+    check_collectives(got, jax_side["costs"][f"{arch} {shape_name}"]["coll"], (arch, shape_name))

@@ -67,7 +67,7 @@ def test_collective_bytes_hold_to_xla(xla, arch, shape_name):
     got = port_collectives(get_smoke_config(arch), shape_name,
                            meta_mesh((2, 2, 2), ("pod", "data", "model")))
     assert got is not None and got["coll_by_type"]["all-to-all"] > 0
-    check_collectives(got, xla()[f"{arch} {shape_name}"])
+    check_collectives(got, xla()[f"{arch} {shape_name}"], (arch, shape_name))
 
 
 @pytest.mark.parametrize("arch,shape_name", [c for c in CELLS if c[1] == "decode_32k"])

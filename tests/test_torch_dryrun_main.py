@@ -78,10 +78,8 @@ def test_main_writes_a_record_with_jax_keys(tmp_path, capsys):
                                              ("xlstm-1.3b", "long_500k")])
 def test_roofline_fills_terms_from_the_counted_step(arch, shape_name):
     from repro_torch.analysis import roofline
-    from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
 
-    assert (dryrun.coll_note(get_config(arch)) is None) == (arch == "olmoe-1b-7b")
     rec = dryrun.run_cell(arch, shape_name, do_roofline=True, verbose=False)
     want = jax_record_keys(roofline=True)
     assert want["top"] <= set(rec)
@@ -90,16 +88,10 @@ def test_roofline_fills_terms_from_the_counted_step(arch, shape_name):
     assert terms["compute_s"] == pytest.approx(terms["flops_dev"] / roofline.PEAK_FLOPS)
     assert terms["memory_s"] == pytest.approx(terms["bytes_dev"] / roofline.HBM_BW)
     assert terms["bound_s"] == max(terms["compute_s"], terms["memory_s"], terms["collective_s"])
-    if dryrun.coll_note(get_config(arch)) is None:
-        # MoE: the collectives of its sharded step on the 256-rank fake group,
-        # the experts' all-to-alls among them
-        assert rec["raw"]["coll_note"] == dryrun.COLL_NOTE
-        assert terms["collective_s"] == pytest.approx(rec["raw"]["coll_bytes"] / roofline.LINK_BW)
-        assert rec["raw"]["coll_bytes"] == sum(rec["raw"]["coll_by_type"].values()) > 0
-        assert rec["raw"]["coll_by_type"]["all-to-all"] > 0
-    else:
-        # the collective term is kept at 0, and the record says why
-        assert terms["collective_s"] == rec["raw"]["coll_bytes"] == 0
-        assert rec["raw"]["coll_by_type"] is None and "not counted" in rec["raw"]["coll_note"]
-        assert "slice 10c" in rec["raw"]["coll_note"]
+    # the collectives of its sharded step on the 256-rank fake group: the
+    # experts' all-to-alls among the MoE's, the xLSTM's blocks per shard
+    assert rec["raw"]["coll_note"] == dryrun.COLL_NOTE
+    assert terms["collective_s"] == pytest.approx(rec["raw"]["coll_bytes"] / roofline.LINK_BW)
+    assert rec["raw"]["coll_bytes"] == sum(rec["raw"]["coll_by_type"].values()) > 0
+    assert (rec["raw"]["coll_by_type"]["all-to-all"] > 0) == (arch == "olmoe-1b-7b")
     assert 0 < rec["useful_flops_ratio"]

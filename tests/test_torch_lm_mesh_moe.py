@@ -26,8 +26,9 @@ owners by two all-to-alls a layer (``moe._moe_ffn_exchange``), as JAX's
   JAX; ZeRO moments and host copies as for the dense archs.
 * The collectives of one forward and backward on the (2, 2) mesh (a
   ``fake`` group in this process): two all-to-alls over ``model`` a layer
-  each way, each of the (M, E / M, C, D) dispatch buffer; experts that do
-  not divide ``model`` raise, naming the layout they lack.
+  each way, each of the (M, E / M, C, D) dispatch buffer.  Experts that do
+  not divide ``model`` take JAX's gspmd dispatch with every expert on every
+  rank (held to JAX on the (1, 4) mesh in ``test_torch_lm_mesh_moe_1x4.py``).
 """
 
 from __future__ import annotations
@@ -187,9 +188,11 @@ def test_each_moe_layer_exchanges_its_tokens_by_two_all_to_alls_over_model_each_
     assert all(t.grad is not None for t in tree_leaves(params))
 
 
-def test_experts_that_do_not_divide_the_model_axis_raise():
-    """8 experts over a model axis of 3 ranks have no layout (a ``fake``
-    group of 3, ``meta`` shards): the MoE names them."""
+def test_experts_that_do_not_divide_the_model_axis_are_all_computed_on_every_rank():
+    """8 experts over a model axis of 3 ranks (a ``fake`` group of 3,
+    ``meta`` shards): both dispatches take JAX's gspmd path, whose
+    ``P("model", …)`` constraint JAX drops, so every rank computes all 8
+    experts on the whole batch and no expert output is exchanged."""
     import dataclasses
 
     import torch
@@ -197,16 +200,31 @@ def test_experts_that_do_not_divide_the_model_axis_raise():
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.distributed.sharding import ShardingRules, abstract_params
-    from repro_torch.launch.dryrun import _dtensor_inputs, fake_group
+    from repro_torch.launch.dryrun import CollectiveCounter, _dtensor_inputs, fake_group
     from repro_torch.models import moe
 
     cfg = get_smoke_config("olmoe-1b-7b")
+    seen = []
+    experts = moe._experts
+
+    def spy(p, xs):
+        seen.append(tuple(xs.shape))
+        return experts(p, xs)
+
     with fake_group(3):
         mesh = _meta_mesh((1, 3))
         params = _dtensor_inputs(abstract_params(cfg, mesh, ShardingRules()), mesh)
         p = {k: v[0] for k, v in params["blocks"]["sub0"]["moe"].items()}
         x = DTensor.from_local(torch.empty(2, 8, 64, device="meta"), mesh.device_mesh(),
                                [Replicate(), Replicate()], run_check=False)
-        for impl in ("local", "gspmd"):
-            with pytest.raises(NotImplementedError, match="8 experts do not divide a model axis of 3"):
-                moe.moe_ffn(dataclasses.replace(cfg, moe_impl=impl), p, x)
+        moe._experts = spy
+        try:
+            for impl in ("local", "gspmd"):
+                counter = CollectiveCounter()
+                with counter:
+                    y, aux = moe.moe_ffn(dataclasses.replace(cfg, moe_impl=impl), p, x)
+                assert tuple(y.shape) == (2, 8, 64) and aux.shape == ()
+                assert counter.counts["all-to-all"] == counter.counts["all-gather"] == 0
+        finally:
+            moe._experts = experts
+    assert [s[0] for s in seen] == [8, 8]

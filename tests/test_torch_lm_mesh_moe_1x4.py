@@ -3,7 +3,14 @@ gloo processes against the JAX package, on the CPU: its 8 experts two a
 rank, every rank holding the whole batch, so that each owner receives 4
 copies of the same dispatch buffer (``test_torch_lm_mesh_moe.py`` has the
 (2, 2) mesh and states the checks; ``torch_lm_mesh_checks`` their
-tolerances)."""
+tolerances).  In the same run, two layouts that do not divide the model
+axis of 4, where JAX's ``constrain`` drops ``model`` and GSPMD keeps the
+dimension whole on it: 6 experts (JAX's gspmd dispatch, every rank
+computing all of them) and 6 query heads, 2 kv heads and head_dim 6
+(every rank attending with all heads); and the same heads with head_dim 8,
+which attend on head_dim shards, their partial scores all-reduced and
+their output projected per shard.  Each is held to JAX's loss and
+gradients under the same mesh, from weights drawn for its shapes."""
 
 from __future__ import annotations
 
@@ -13,6 +20,8 @@ import torch_lm_mesh_checks as checks
 import torch_lm_mesh_common as common
 
 ARCH = "olmoe-1b-7b"
+#: the config variants that do not divide ``model`` (``torch_lm_mesh_common.VARIANTS``)
+UNDIVIDED = ["experts6", "heads6", "heads6_hd8"]
 
 
 @pytest.fixture(scope="module")
@@ -22,10 +31,11 @@ def run(tmp_path_factory):
     base = tmp_path_factory.mktemp("moe14")
     jax_dir = base / "jax"
     jax_dir.mkdir()
-    jax_proc = common.start_jax_shards([ARCH], common.mesh_shape(4), loss_cases=[(ARCH, None)],
+    cases = [(ARCH, None)] + [(ARCH, v) for v in UNDIVIDED]
+    jax_proc = common.start_jax_shards([ARCH], common.mesh_shape(4), loss_cases=cases,
                                        out=jax_dir)
-    out = common.ranks_done(common.start_ranks([ARCH], base / "mp4", model_parallel=4),
-                            base / "mp4")
+    out = common.ranks_done(common.start_ranks([ARCH], base / "mp4", model_parallel=4,
+                                               variant=UNDIVIDED), base / "mp4")
     return out, common.jax_shards(jax_proc), jax_dir
 
 
@@ -59,3 +69,8 @@ def test_adamw_with_zero_moments_equals_moments_laid_out_as_params(run):
 
 def test_only_rank_0_copies_the_checkpoint_to_host_memory(run):
     checks.host_copies(run[0], ARCH)
+
+
+@pytest.mark.parametrize("variant", UNDIVIDED)
+def test_layouts_that_do_not_divide_model_run_and_equal_jax_under_its_mesh(run, variant):
+    checks.loss_and_grads_on_mesh(run[0], run[2], ARCH, variant)

@@ -5,9 +5,7 @@ width (``torch_lm_mesh_common``'s ranks on a (2, 2) ``data x model`` mesh,
 ``torch_lm_mesh_checks``), and qwen3-0.6b once more on the (1, 4) mesh,
 where its 2 kv heads do not divide ``model`` and wk / wv are sharded on
 their head_dim (``attention._proj_per_shard``) and attention gathers the
-kv heads (train) or shards head_dim (decode).  Also: RG-LRU and xLSTM
-blocks on the mesh raise, naming their slice, where the MoE runs
-(``test_torch_lm_mesh_moe.py`` holds it to JAX); the gradients hold under
+kv heads (train) or shards head_dim (decode).  The gradients hold under
 the per-block remat with the "dots" policy too."""
 
 from __future__ import annotations
@@ -32,8 +30,8 @@ def run(tmp_path_factory):
     base = tmp_path_factory.mktemp("mesh")
     jax_procs = {2: common.start_jax_shards(ARCHS, common.mesh_shape(2)),
                  4: common.start_jax_shards(ARCHS[:1], common.mesh_shape(4))}
-    out = {2: common.ranks_done(common.start_ranks(ARCHS, base / "mp2", unsupported=True,
-                                                   variant="remat_dots"), base / "mp2")}
+    out = {2: common.ranks_done(common.start_ranks(ARCHS, base / "mp2", variant="remat_dots"),
+                                base / "mp2")}
     out[4] = common.ranks_done(common.start_ranks(ARCHS[:1], base / "mp4", model_parallel=4,
                                                   variant="blocked"), base / "mp4")
     return {mp: (out[mp], common.jax_shards(jax_procs[mp])) for mp in out}
@@ -90,15 +88,19 @@ def test_sharded_grads_through_the_blocked_online_softmax_with_the_kv_heads_gath
     checks.loss_and_grads(run[4][0], "qwen3-0.6b", "blocked")
 
 
-@pytest.mark.parametrize("t,layout", [(16, "kv heads gathered"), (1, "head_dim")])
+@pytest.mark.parametrize("t,layout", [(16, "kv heads gathered"), (1, "head_dim"),
+                                      (1, "kv heads gathered")])
 def test_attention_over_a_model_axis_the_kv_heads_do_not_divide_computes_no_head_twice(
         t, layout):
     """``attention._per_shard`` on a (1, 4) mesh of a 4-rank ``fake`` group
     (rank 0's part, ``meta`` shards) for qwen3-0.6b's smoke heads (4 query,
-    2 kv, head_dim 16): with 16 query rows each rank gets its one query head
-    and the one kv head it reads, gathered; with one query row (decode) each
-    rank gets a quarter of head_dim of every head and all-reduces its
-    partial scores once."""
+    2 kv, head_dim 16): with 16 query rows (train) each rank gets its one
+    query head and the one kv head it reads, gathered; with one query row
+    (decode) each rank gets a quarter of head_dim of every head and
+    all-reduces its partial scores once; at decode with a head_dim of 6,
+    which the axis does not divide, the kv heads are gathered as in train."""
+    import dataclasses
+
     import numpy as np
     import torch
     from torch.distributed.tensor import DTensor, Replicate, Shard
@@ -108,7 +110,8 @@ def test_attention_over_a_model_axis_the_kv_heads_do_not_divide_computes_no_head
     from repro_torch.launch.dryrun import CollectiveCounter, fake_group
     from repro_torch.models import attention
 
-    cfg = get_smoke_config("qwen3-0.6b")
+    hd = 6 if (t, layout) == (1, "kv heads gathered") else 16
+    cfg = dataclasses.replace(get_smoke_config("qwen3-0.6b"), head_dim=hd)
     seen = {}
 
     def fn(c, q, k, v, psum):
@@ -128,16 +131,16 @@ def test_attention_over_a_model_axis_the_kv_heads_do_not_divide_computes_no_head
 
         counter = CollectiveCounter()
         with counter:
-            out = attention._per_shard(cfg, fn, whole(2, t, 4, 16), whole(2, 8, 2, 16),
-                                       whole(2, 8, 2, 16))
-    assert tuple(out.shape) == (2, t, 4, 16)
+            out = attention._per_shard(cfg, fn, whole(2, t, 4, hd), whole(2, 8, 2, hd),
+                                       whole(2, 8, 2, hd))
+    assert tuple(out.shape) == (2, t, 4, hd)
     if layout == "head_dim":
         assert seen["q"] == (2, 1, 4, 4) and seen["k"] == seen["v"] == (2, 8, 2, 4)
         assert (seen["cfg"].n_heads, seen["cfg"].n_kv_heads) == (4, 2)
         assert seen["scores"] == (2, 2, 2, 1, 8) and counter.counts["all-reduce"] == 1
         assert out.placements[1] == Shard(3)
     else:
-        assert seen["q"] == (2, 16, 1, 16) and seen["k"] == seen["v"] == (2, 8, 1, 16)
+        assert seen["q"] == (2, t, 1, hd) and seen["k"] == seen["v"] == (2, 8, 1, hd)
         assert (seen["cfg"].n_heads, seen["cfg"].n_kv_heads) == (1, 1)
         assert "scores" not in seen and counter.counts["all-reduce"] == 0
         assert out.placements[1] == Shard(2)
@@ -149,14 +152,3 @@ def test_kv_heads_that_do_not_divide_model_are_sharded_on_head_dim(run):
     for name in ("wk", "wv"):
         assert rec["leaves"][f"blocks/sub0/mixer/{name}"]["placements"][1] == "S(3)"
 
-
-def test_moe_and_rglru_blocks_raise_on_a_multi_rank_mesh(run):
-    """The RG-LRU and xLSTM blocks still raise on the mesh, naming slice 10c
-    and their blocks; the MoE blocks are laid out (slice 10b) and raise
-    nothing."""
-    for rank in range(common.WORLD):
-        raised = json.loads((run[2][0] / f"unsupported.rank{rank}.json").read_text())
-        assert set(raised) == set(common.UNSUPPORTED_RUN)
-        assert raised["olmoe-1b-7b"] is None
-        assert "slice 10c" in raised["recurrentgemma-2b"] and "rec" in raised["recurrentgemma-2b"]
-        assert "slice 10c" in raised["xlstm-1.3b"] and "mlstm" in raised["xlstm-1.3b"]

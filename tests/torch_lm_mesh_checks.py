@@ -13,15 +13,19 @@ step and the port's, from the same fixed weights (the port's
   analytically zero);
 * 3 sharded AdamW steps equal the port's one-device steps on the same
   batches within the tolerances of ``tests/test_torch_lm_train_step.py``:
-  each metric within 1e-4 (relative above 1), params and moments within
-  atol 2e-3 / rtol 1e-3;
+  each metric within 1e-4 (relative above 1; ``METRIC_RTOL`` for an arch
+  whose step amplifies float32 rounding, with the witness of
+  :func:`last_step_gradient`), params and moments within atol 2e-3 /
+  rtol 1e-3;
 * the greedy tokens of the sharded ``Server`` equal JAX's ``Server``'s;
   a row may differ only from a step where JAX's top-2 logit margin is
   below 1e-4 (a float32 near-tie), and not before;
 * the 4-rank checkpoint holds the files of a one-device save of the same
   tree byte for byte (the manifest equal but for its write time), and JAX's
   ``CheckpointManager`` restores it exactly; rank 0 alone made host copies
-  of the gathered leaves.
+  of the gathered leaves;
+* the recurrent states of the served decode are ``DTensor``s laid out by
+  ``transformer.decode_state_axes`` under the rules' ``batch`` rule.
 """
 
 from __future__ import annotations
@@ -41,14 +45,26 @@ from repro.configs import get_smoke_config as jget_smoke
 from repro.launch import serve as jserve
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_smoke_config as tget_smoke
-from repro_torch.data.tokens import TokenPipeline
 from repro_torch.distributed import sharding as tsharding
 from repro_torch.models import params as pmod
+from repro_torch.models import transformer
 from repro_torch.optim import OptimizerConfig, init_opt_state
+from repro_torch.training import step as tstep
 from repro_torch.training.step import make_train_step
+from repro_torch.tree import tree_map
 from torch_lm_parity import fixed_params, flat_keys, loss_and_grads_both
 
 NEAR_TIE = 1e-4
+#: the train metrics' tolerance (relative above 1) where it is not 1e-4: at
+#: smoke width xlstm-1.3b's third step on the mesh tests' batches has a
+#: gradient norm of ~1,010 (45.8 and 48.5 before it), and there its
+#: gradient is ill-conditioned: at the same params, weights moved by 1e-6
+#: of themselves move it as far as the 4 ranks' float32 rounding does
+#: (:func:`last_step_gradient` holds that), and one-device runs from weights
+#: moved by 1e-7 or 1e-6 of themselves read third-step norms 2.0% and 2.3%
+#: apart (torch 2.13 on a CPU).  The loss, the params and the moments hold
+#: to the shared tolerances
+METRIC_RTOL = {"xlstm-1.3b": 2e-2}
 
 
 def _ranks(out: Path, arch: str) -> list[dict]:
@@ -149,7 +165,7 @@ def train_steps(out: Path, arch: str, per_shard: bool = False) -> None:
     params = pmod.init_params(cfg, 0, "cpu")
     opt = init_opt_state(params)
     step_fn = make_train_step(cfg, OptimizerConfig(**common.OPT))
-    pipe = TokenPipeline(cfg.vocab_size, common.TRAIN_SEQ, common.TRAIN_BATCH, seed=0)
+    pipe = common.train_pipe(cfg)
     shape = tuple(_ranks(out, arch)[0]["mesh"].values())
     previous = tsharding.get_current_mesh()
     if per_shard:
@@ -162,15 +178,54 @@ def train_steps(out: Path, arch: str, per_shard: bool = False) -> None:
             metrics.append({k: float(v) for k, v in m.items()})
     finally:
         tsharding.set_current_mesh(previous)
+    rtol = METRIC_RTOL.get(arch, 1e-4)
     for rec in _ranks(out, arch):
         for got, want in zip(rec["train"], metrics, strict=True):
             assert set(got) == set(want)
+            assert abs(got["loss"] - want["loss"]) <= 1e-4 * max(1.0, abs(want["loss"]))
             for k in want:
-                assert abs(got[k] - want[k]) <= 1e-4 * max(1.0, abs(want[k])), (k, got[k], want[k])
+                assert abs(got[k] - want[k]) <= rtol * max(1.0, abs(want[k])), (k, got[k], want[k])
     full = _full(out, arch)
     for key, t in common.flat({"params": params, "opt": opt}):
         np.testing.assert_allclose(full[f"state/{key}"], t.numpy(), atol=2e-3, rtol=1e-3,
                                    err_msg=key)
+
+
+def last_step_gradient(out: Path, arch: str, moved: float = 1e-6) -> dict[str, float]:
+    """At the params the ranks held before their last train step, the
+    ranks' loss and gradients of that step's batch against the one-device
+    ones at the same params: the loss within 1e-5 (relative above 1), and
+    the gradients no further from the one device's than twice what moving
+    each weight by `moved` of itself (seeded normal draws) does to the
+    one-device gradients.  That is the witness for ``METRIC_RTOL``: the 4
+    ranks part from one device no more than rounding-scale changes do."""
+    cfg = common.f32(tget_smoke(arch))
+    with np.load(out / f"{arch}.last.npz") as z:
+        got = {k: z[k] for k in z.files}
+    keys = [k for k, _ in common.flat(pmod.param_specs(cfg))]
+    like = pmod.init_params(cfg, 0, "cpu")
+    batch = common.train_pipe(cfg).batch_at(common.TRAIN_STEPS - 1, "cpu")
+
+    def one_device(scale) -> tuple[float, dict[str, np.ndarray]]:
+        it = iter(torch.from_numpy(got[f"params/{k}"]) * scale(k) for k in keys)
+        params = tree_map(lambda _: next(it), like)
+        loss, _, grads = tstep.loss_and_grads(cfg, params, batch)
+        return float(loss), {k: g.double().numpy() for k, g in common.flat(grads)}
+
+    gen = torch.Generator().manual_seed(1)
+    loss, want = one_device(lambda k: 1.0)
+    _, near = one_device(lambda k: 1 + moved * torch.randn(got[f"params/{k}"].shape,
+                                                           generator=gen))
+    for rec in _ranks(out, arch):
+        assert abs(rec["last_loss"] - loss) <= 1e-5 * max(1.0, abs(loss)), (rec["last_loss"], loss)
+
+    def gap(g: dict) -> float:
+        return float(np.sqrt(sum(np.sum(np.square(g[k] - want[k])) for k in want)))
+
+    ranks = {k: got[f"grad/{k}"].astype(np.float64) for k in want}
+    assert gap(ranks) <= 2 * gap(near), (gap(ranks), gap(near))
+    return {"loss": loss, "norm": gap(dict.fromkeys(want, 0.0)), "ranks_gap": gap(ranks),
+            "moved_gap": gap(near)}
 
 
 def _jax_greedy(arch: str, prompts: np.ndarray, gen: int) -> tuple[np.ndarray, np.ndarray]:
@@ -251,3 +306,29 @@ def zero_moments(out: Path, arch: str) -> None:
     for rec in _ranks(out, arch):
         assert rec["zero_layouts_differ"] > 0
         assert rec["zero_step_equal"]
+
+
+def state_layouts(out: Path, arch: str) -> None:
+    """Every leaf of the decode state after a prefill and a decode step on
+    the ranks has the placements of ``decode_state_axes`` (the position, a
+    replicated scalar, is a plain tensor on every rank)."""
+    cfg = tget_smoke(arch)
+    recs = _ranks(out, arch)
+    shape = tuple(recs[0]["mesh"].values())
+    mesh = tsharding.Mesh(np.array(["cpu"] * common.WORLD, dtype=object).reshape(shape),
+                          ("data", "model"))
+    rules = tsharding.ShardingRules()
+    state = common.state_tree(transformer.init_decode_state(cfg, common.SERVE_SLOTS,
+                                                            common.SERVE_PROMPT, device="meta"))
+    axes = dict(common.flat(common.state_tree(transformer.decode_state_axes(cfg)),))
+    for rec in recs:
+        assert set(rec["state"]) == set(axes)
+        for key, t in common.flat(state):
+            got = rec["state"][key]
+            if key == "pos":
+                assert got["type"] == "Tensor" and got["shape"] == []
+                continue
+            want = [str(p) for p in rules.param_sharding(t.shape, axes[key], mesh).placements]
+            assert got["type"] == "DTensor" and got["placements"] == want, (key, got, want)
+            if key.endswith(("mixer/h", "mixer/c", "mixer/n", "mixer/m", "mixer/conv")):
+                assert got["shape"] == list(t.shape), (key, got["shape"], list(t.shape))

@@ -20,16 +20,21 @@ float32 compute, from the port's seed-0 weights laid out by ``RULES_KW``:
   a checkpoint of them through ``CheckpointManager`` (every rank gathers,
   rank 0 writes), counting each rank's host copies of a leaf;
 * serves 4 prompts greedily through ``launch.serve.Server`` and writes the
-  tokens;
+  tokens (the archs on token input alone: musicgen-medium and
+  llama-3.2-vision-90b fail at the prefill in both packages' ``Server``);
+  for the recurrent archs it also writes the type, shape and placements of
+  each leaf of the decode state after a prefill and one decode step;
 * with ``--variant NAME`` (one or more), runs ``loss_and_grads`` once more
   with the config fields of ``VARIANTS[NAME]``, on ``loss_batch(cfg, NAME)``,
   and writes it as ``<arch>.<NAME>``: the per-block remat under the "dots"
   policy, the online-softmax blocked attention with 8-wide blocks (some
-  wholly masked), and the MoE's capacity drops on its local and its gspmd
+  wholly masked), the MoE's capacity drops on its local and its gspmd
   dispatch (a batch whose shards route 64 tokens each, past the capacity
-  floor of 16) beside the dropless dispatch of the same batch;
-* with ``--unsupported``, runs ``loss_fn`` on a MoE, an RG-LRU and an xLSTM
-  arch and writes what each raised (the MoE raises nothing).
+  floor of 16) beside the dropless dispatch of the same batch, and the
+  layouts that do not divide a ``model`` axis of 4 (6 experts; 6 query
+  heads, 2 kv heads and head_dim 6; the same heads with head_dim 8, which
+  divides it), whose weights are drawn for the variant's shapes
+  (:func:`variant_params`).
 
 ``RULES_KW`` makes ``ShardingRules(fsdp=True)`` with an FSDP threshold of 4 KiB
 (in float32), so that at smoke width the weight matrices are sharded over
@@ -54,6 +59,10 @@ MESH_SHAPE = (2, 2)
 RULES_KW = dict(fsdp=True, fsdp_min_bytes=1 << 12)
 OPT = dict(warmup_steps=2, total_steps=10)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 32, 3
+#: archs whose ranks also write, before the last train step, the params and
+#: the whole gradients of that step's batch (``<arch>.last.npz``), for
+#: ``torch_lm_mesh_checks.last_step_gradient``
+LAST_STEP_GRADS = ("xlstm-1.3b",)
 SERVE_SLOTS, SERVE_PROMPT, SERVE_GEN = 4, 8, 6
 #: config fields of the loss-and-gradient variants (``--variant``)
 VARIANTS = {
@@ -62,11 +71,12 @@ VARIANTS = {
     "drops": dict(moe_capacity=0.5),
     "drops_gspmd": dict(moe_capacity=0.5, moe_impl="gspmd"),
     "dropless_wide": dict(),
+    "experts6": dict(moe_experts=6),
+    "heads6": dict(n_heads=6, n_kv_heads=2, head_dim=6),
+    "heads6_hd8": dict(n_heads=6, n_kv_heads=2, head_dim=8),
 }
 #: the (batch, seq) of a variant's loss batch where it is not ``loss_batch``'s (2, 16)
 VARIANT_BATCH = {"drops": (4, 32), "drops_gspmd": (4, 32), "dropless_wide": (4, 32)}
-#: the archs of the ``--unsupported`` run
-UNSUPPORTED_RUN = ("olmoe-1b-7b", "recurrentgemma-2b", "xlstm-1.3b")
 
 
 def f32(cfg):
@@ -78,9 +88,61 @@ def prompts(vocab: int) -> np.ndarray:
 
 
 def loss_batch(cfg, variant: str | None = None) -> dict[str, np.ndarray]:
+    """The tokens and, for the stub frontends, the frame embeddings or the
+    context (``tests/torch_lm_parity.batch_for``'s draws)."""
     rng = np.random.default_rng(1)
-    shape = VARIANT_BATCH.get(variant, (2, 16))
-    return {"tokens": rng.integers(0, cfg.vocab_size, shape).astype(np.int32)}
+    b, s = VARIANT_BATCH.get(variant, (2, 16))
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)}
+    if cfg.input_mode == "embeddings":
+        out["embeddings"] = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32)
+    if cfg.n_ctx_tokens:
+        out["ctx"] = rng.standard_normal((b, cfg.n_ctx_tokens, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def serves(cfg) -> bool:
+    """Whether ``launch.serve.Server`` serves the arch (token input, no context)."""
+    return cfg.input_mode == "tokens" and not cfg.n_ctx_tokens
+
+
+def recurrent(cfg) -> bool:
+    return bool({"rec", "mlstm", "slstm"} & set(cfg.layer_pattern + cfg.tail_pattern))
+
+
+def train_pipe(cfg):
+    """The ``TokenPipeline`` of the train steps (with the stub frontends' draws)."""
+    from repro_torch.data.tokens import pipeline_for
+    from repro_torch.models.config import ShapeConfig
+
+    return pipeline_for(cfg, ShapeConfig("mesh", TRAIN_SEQ, TRAIN_BATCH, "train"), seed=0)
+
+
+def variant_config(cfg, variant: str | None):
+    return dataclasses.replace(cfg, **VARIANTS.get(variant, {}))
+
+
+def variant_params(arch: str, variant: str | None):
+    """The port's seed-0 smoke weights of `arch` as JAX's numpy tree, drawn
+    for the shapes of ``VARIANTS[variant]`` where it changes them."""
+    from repro_torch import convert
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import params as pmod
+    from torch_lm_parity import fixed_params
+
+    cfg = get_smoke_config(arch)
+    vcfg = variant_config(cfg, variant)
+    if pmod.param_specs(vcfg) == pmod.param_specs(cfg):
+        return fixed_params(arch)
+    return convert.jax_params_from_lm(pmod.init_params(vcfg, 0, "cpu"))
+
+
+def state_tree(state) -> dict:
+    """A decode state as a dict tree (its ``tail`` list keyed by index)."""
+    if isinstance(state, list):
+        return {str(i): state_tree(v) for i, v in enumerate(state)}
+    if isinstance(state, dict):
+        return {k: state_tree(v) for k, v in state.items()}
+    return state
 
 
 def flat(tree, prefix: str = "") -> list[tuple[str, object]]:
@@ -94,10 +156,28 @@ def mesh_shape(model_parallel: int) -> tuple[int, int]:
     return WORLD // model_parallel, model_parallel
 
 
+#: the environment variable that names a directory of ranks' files made
+#: elsewhere (for example under another torch, on 4 gloo ranks of another
+#: machine's CPU): this script run with the archs, ``--model-parallel`` and
+#: ``--variant`` of a test module's :func:`start_ranks` call and ``--out-root
+#: DIR``.  Where it is set, the tests read those files instead of starting
+#: the ranks, and hold them with their own checks.
+RANKS_FROM = "LM_MESH_RANKS_FROM"
+
+
+def ranks_key(archs: list[str], model_parallel: int, variants: list[str]) -> str:
+    """The subdirectory of ``--out-root`` that a run with these arguments writes."""
+    return "__".join(["+".join(archs), f"mp{model_parallel}", *variants])
+
+
 def start_ranks(archs: list[str], out: Path, *, model_parallel: int = MESH_SHAPE[1],
-                unsupported: bool = False,
-                variant: str | list[str] | None = None) -> subprocess.Popen:
-    """Start this script on 4 gloo ranks; :func:`ranks_done` waits for it."""
+                variant: str | list[str] | None = None) -> subprocess.Popen | Path:
+    """Start this script on 4 gloo ranks; :func:`ranks_done` waits for it.
+    Under ``RANKS_FROM`` nothing starts: the run's files are read from that
+    directory (:func:`ranks_key`)."""
+    variants = [variant] if isinstance(variant, str) else list(variant or [])
+    if os.environ.get(RANKS_FROM):
+        return Path(os.environ[RANKS_FROM]) / ranks_key(archs, model_parallel, variants)
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
     env.pop("WORLD_SIZE", None)
     # at a lower priority (nice 10): the 4 ranks yield the cores to the
@@ -105,29 +185,28 @@ def start_ranks(archs: list[str], out: Path, *, model_parallel: int = MESH_SHAPE
     cmd = ["nice", "-n", "10", sys.executable, "-m", "torch.distributed.run", "--standalone",
            f"--nproc-per-node={WORLD}", __file__, "--out", str(out),
            "--model-parallel", str(model_parallel), *archs]
-    if unsupported:
-        cmd.append("--unsupported")
-    for v in [variant] if isinstance(variant, str) else variant or []:
+    for v in variants:
         cmd += ["--variant", v]
     return subprocess.Popen(cmd, env=env, text=True, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE)
 
 
-def ranks_done(proc: subprocess.Popen, out: Path, timeout: int = 600) -> Path:
+def ranks_done(proc: subprocess.Popen | Path, out: Path, timeout: int = 600) -> Path:
+    if isinstance(proc, Path):  # made elsewhere (RANKS_FROM)
+        assert any(proc.glob("*.rank0.json")), f"no ranks' files in {proc}"
+        return proc
     _, err = proc.communicate(timeout=timeout)
     assert proc.returncode == 0, err[-4000:]
     return out
 
 
-def _worker(archs: list[str], out: Path, unsupported: bool, model_parallel: int,
-            variants: list[str]) -> None:
+def _worker(archs: list[str], out: Path, model_parallel: int, variants: list[str]) -> None:
     import torch
 
     torch.set_num_threads(1)
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.checkpoint import manager as ckpt_manager
     from repro_torch.configs import get_smoke_config
-    from repro_torch.data.tokens import TokenPipeline
     from repro_torch.distributed.sharding import ShardingRules, is_dtensor, tree_param_shardings
     from repro_torch.launch.mesh import init_distributed, mesh_for
     from repro_torch.launch.serve import Server, ServerConfig
@@ -157,17 +236,19 @@ def _worker(archs: list[str], out: Path, unsupported: bool, model_parallel: int,
         np.savez(out / f"{arch}.local{rank}.npz",
                  **{k: (t.to_local() if is_dtensor(t) else t).numpy() for k, t in leaves})
 
-        batch = {k: rules.data_sharding(mesh).place(torch.from_numpy(v))
+        batch = {k: rules.data_sharding(mesh, v.ndim).place(torch.from_numpy(v))
                  for k, v in loss_batch(cfg).items()}
         loss, metrics, grads = loss_and_grads(cfg, params, batch)
         arrays = {f"grad/{k}": full(g).numpy() for k, g in flat(grads)}
         rec["loss"] = float(full(loss))
         rec["loss_metrics"] = {k: float(full(v)) for k, v in metrics.items()}
         for variant in variants:
-            vcfg = dataclasses.replace(cfg, **VARIANTS[variant])
-            vbatch = {k: rules.data_sharding(mesh).place(torch.from_numpy(v))
+            vcfg = variant_config(cfg, variant)
+            vbatch = {k: rules.data_sharding(mesh, v.ndim).place(torch.from_numpy(v))
                       for k, v in loss_batch(cfg, variant).items()}
-            vloss, vmetrics, vgrads = loss_and_grads(vcfg, params, vbatch)
+            vparams = (params if pmod.param_specs(vcfg) == pmod.param_specs(cfg)
+                       else pmod.init_params(vcfg, 0, mesh=mesh, rules=rules))
+            vloss, vmetrics, vgrads = loss_and_grads(vcfg, vparams, vbatch)
             vrec = {"loss": float(full(vloss)),
                     "loss_metrics": {k: float(full(v)) for k, v in vmetrics.items()}}
             vgrads = {f"grad/{k}": full(g).numpy() for k, g in flat(vgrads)}
@@ -177,9 +258,17 @@ def _worker(archs: list[str], out: Path, unsupported: bool, model_parallel: int,
 
         step_fn = make_train_step(cfg, OptimizerConfig(**OPT))
         opt = init_opt_state(params)
-        pipe = TokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+        pipe = train_pipe(cfg)
         rec["train"] = []
         for step in range(TRAIN_STEPS):
+            if step == TRAIN_STEPS - 1 and arch in LAST_STEP_GRADS:
+                last_loss, _, last = loss_and_grads(cfg, params,
+                                                    pipe.sharded_batch_at(step, mesh, rules))
+                rec["last_loss"] = float(full(last_loss))
+                last_arrays = {**{f"params/{k}": full(t).numpy() for k, t in flat(params)},
+                               **{f"grad/{k}": full(g).numpy() for k, g in flat(last)}}
+                if rank == 0:
+                    np.savez(out / f"{arch}.last.npz", **last_arrays)
             params, opt, m = step_fn(params, opt, pipe.sharded_batch_at(step, mesh, rules), step)
             rec["train"].append({k: float(v) for k, v in m.items()})
             if step == 0:
@@ -209,27 +298,24 @@ def _worker(archs: list[str], out: Path, unsupported: bool, model_parallel: int,
             ckpt_manager._host = host
         rec["host_copies"] = len(copies)
 
-        server = Server(cfg, pmod.init_params(cfg, 0, mesh=mesh, rules=rules), SERVE_SLOTS,
-                        ServerConfig())
-        rec["tokens"] = server.generate(prompts(cfg.vocab_size), SERVE_GEN).tolist()
+        if serves(cfg):
+            server = Server(cfg, pmod.init_params(cfg, 0, mesh=mesh, rules=rules), SERVE_SLOTS,
+                            ServerConfig())
+            rec["tokens"] = server.generate(prompts(cfg.vocab_size), SERVE_GEN).tolist()
+        if serves(cfg) and recurrent(cfg):
+            toks = torch.as_tensor(prompts(cfg.vocab_size))
+            _, state = transformer.prefill(cfg, server.params, {"tokens": server._place(toks)})
+            _, state = transformer.decode_step(cfg, server.params, state,
+                                               server._place(toks[:, -1:]))
+            rec["state"] = {k: {"type": type(t).__name__, "shape": list(t.shape),
+                                "placements": [str(p) for p in t.placements] if is_dtensor(t)
+                                else None}
+                            for k, t in flat(state_tree(state))}
 
         if rank == 0:
             np.savez(out / f"{arch}.full.npz", **arrays)
         (out / f"{arch}.rank{rank}.json").write_text(json.dumps(rec))
 
-    if unsupported:
-        raised = {}
-        for arch in UNSUPPORTED_RUN:
-            cfg = f32(get_smoke_config(arch))
-            params = pmod.init_params(cfg, 0, mesh=mesh, rules=rules)
-            batch = {"tokens": rules.data_sharding(mesh).place(
-                torch.from_numpy(loss_batch(cfg)["tokens"]))}
-            try:
-                transformer.loss_fn(cfg, params, batch)
-                raised[arch] = None
-            except NotImplementedError as e:
-                raised[arch] = str(e)
-        (out / f"unsupported.rank{rank}.json").write_text(json.dumps(raised))
     torch.distributed.destroy_process_group()
 
 
@@ -271,8 +357,9 @@ print("RESULT", json.dumps(out))
 
 #: JAX's ``loss_fn`` value and gradients under the same mesh and rules (JAX's
 #: ``moe_ffn`` reads the current mesh: its "local" dispatch runs the
-#: ``shard_map`` with the two all-to-alls), from the port's seed-0 weights,
-#: for each (arch, variant) case, written to ``<arch>.<variant>.jax.npz``
+#: ``shard_map`` with the two all-to-alls), from the port's seed-0 weights
+#: (``variant_params``), for each (arch, variant) case, written to
+#: ``<arch>.<variant>.jax.npz``
 _JAX_MESH_LOSS = """
 import dataclasses
 import jax.numpy as jnp
@@ -281,16 +368,15 @@ from pathlib import Path
 from repro.launch.mesh import _make_mesh
 from repro.models import transformer
 import torch_lm_mesh_common as common
-from torch_lm_parity import fixed_params
 lmesh = _make_mesh({shape!r}, ("data", "model"))
 sharding.set_current_mesh(lmesh)
 for arch, variant in {cases!r}:
-    cfg = dataclasses.replace(common.f32(get_smoke_config(arch)), **common.VARIANTS.get(variant, {{}}))
-    leaves, treedef = jax.tree.flatten(jax.tree.map(jnp.asarray, fixed_params(arch)))
+    cfg = common.variant_config(common.f32(get_smoke_config(arch)), variant)
+    leaves, treedef = jax.tree.flatten(jax.tree.map(jnp.asarray, common.variant_params(arch, variant)))
     specs = jax.tree.leaves(pmod.param_specs(cfg), is_leaf=lambda v: isinstance(v, pmod.ParamSpec))
     params = treedef.unflatten([jax.device_put(a, rules.param_sharding(s.shape, s.axes, lmesh))
                                 for a, s in zip(leaves, specs)])
-    batch = {{k: jax.device_put(jnp.asarray(v), rules.data_sharding(lmesh))
+    batch = {{k: jax.device_put(jnp.asarray(v), rules.data_sharding(lmesh, v.ndim))
              for k, v in common.loss_batch(cfg, variant).items()}}
     vg = jax.jit(jax.value_and_grad(lambda p, b: transformer.loss_fn(cfg, p, b), has_aux=True))
     with lmesh:
@@ -332,9 +418,12 @@ if __name__ == "__main__":
 
     ap = argparse.ArgumentParser()
     ap.add_argument("archs", nargs="*")
-    ap.add_argument("--out", required=True)
-    ap.add_argument("--unsupported", action="store_true")
+    where = ap.add_mutually_exclusive_group(required=True)
+    where.add_argument("--out")
+    where.add_argument("--out-root", help="write to OUT_ROOT/<ranks_key> (RANKS_FROM)")
     ap.add_argument("--model-parallel", type=int, default=MESH_SHAPE[1])
     ap.add_argument("--variant", choices=sorted(VARIANTS), action="append", default=[])
     a = ap.parse_args()
-    _worker(a.archs, Path(a.out), a.unsupported, a.model_parallel, a.variant)
+    out = Path(a.out) if a.out else Path(a.out_root) / ranks_key(a.archs, a.model_parallel,
+                                                                 a.variant)
+    _worker(a.archs, out, a.model_parallel, a.variant)
