@@ -52,10 +52,15 @@ Phases, each printed as one JSON object per line:
    watcher's thread), every label against the step-0 engine and the JAX
    package's labels, the fit's class sums against JAX's, a raw ``:search?k=3``;
    request p50/p99, the queue, assembly, device and write stages' p50, img/s and
-   the counters; serve_online_uhd and serve_online_uhd_dynamic: ``serve_online
-   --smoke --d 8192``, the learner training HTTP feedback on its own stream while
-   the watcher promotes, the promoted sums and the accuracies before and after
-   against JAX's, the learner's ingest, train and publish p50s; obs_agg:
+   the counters; on a machine with several cards the pool's replicas are
+   whatever ``plan_executions`` gives over them (``network_plan``: on 4 cards,
+   two 2-card sharded replicas, eager, scoring with ``hamming_packed``), and the
+   kernels each network phase must and must not launch, and which engines must
+   have replayed a graph, follow that plan; serve_online_uhd and
+   serve_online_uhd_dynamic: ``serve_online --smoke --d 8192``, the learner
+   training HTTP feedback on its own stream while the watcher promotes, the
+   promoted sums and the accuracies before and after against JAX's, the
+   learner's ingest, train and publish p50s; obs_agg:
    ``obs_agg --smoke --d 8192``, two endpoints (a 2-replica pool and one engine)
    aggregated over sockets; then ``network_phases``, their total seconds;
 5. train: ``repro_torch.launch.train_hdc`` at its defaults (uhd, d=8192, 4096
@@ -78,6 +83,15 @@ Phases, each printed as one JSON object per line:
    ``ShardedExecution`` on 1 and 4 shards, against the single-device search;
 9. train_shard_map: ``train_hdc --shard-map --ckpt-shards 4`` at its defaults,
    its class sums against the JAX package's checksum, and the round trip;
+9b. sharded_cards: the HDC paths on N = min(visible cards, 4) distinct cards
+   (``sharded_cards_phase``): ``partial_fit_sharded`` on ``mesh_for()`` over them
+   (and a (2, 2) mesh at N = 4) for the three encoders at D = 8192 against JAX's
+   checksums, with every card of the mesh synchronised before the clock is read;
+   those steps, and phase 7's per-host shards, served over the N cards against
+   the one-card engine and JAX's accuracy; phase 8's store searched across them;
+   a ``ReplicaPool`` of N single-card replicas, each with its graph on its own
+   card, under a hot reload; the launches by card.  At N = 1 it runs the same
+   code on the one card and says so;
 10. slice_baseline: the serving smoke (and its serve_plane line) with the
    paper's baseline encoder, its class sums and served accuracy against the
    JAX package's (kernels 7, 8, 5);
@@ -91,7 +105,8 @@ Phases, each printed as one JSON object per line:
    each retrain is trained: the launcher keeps no retrained model), and the
    checkpoint round trip;
 13. profile: ``torch.profiler`` over 16 steady predict batches of 64 for each
-   encoder, on one device and on 4 shards, the eager step
+   encoder, on one device and on 4 shards (and, with several cards, phase 9b's
+   engines over them, eager alone), the eager step
    (``engine.execution.predict``) beside the engine's CUDA-graph replay
    (``engine.predict``): wall ms a batch, device time a batch by kernel, and
    the device's idle share; a replay's device time also by CUDA events;
@@ -1128,7 +1143,7 @@ def path_launches(ops, name: str, kernels: tuple[str, ...], fn, absent: tuple[st
     torch.cuda.synchronize()
     launches = dict(ops.LAUNCHES)
     PATH_SHAPES[name] = {k: dict(v) for k, v in ops.LAUNCH_SHAPES.items()}
-    emit("launches", path=name, launches=launches)
+    emit("launches", path=name, launches=launches, by_card=launches_by_card(ops))
     missing = [k for k in kernels if launches[k] <= 0]
     if missing:
         raise AssertionError(f"the {name} path launched no {missing} kernel")
@@ -1138,15 +1153,22 @@ def path_launches(ops, name: str, kernels: tuple[str, ...], fn, absent: tuple[st
     return out, launches
 
 
+def launches_by_card(ops) -> dict[str, dict[str, int]]:
+    """The launches counted since the last reset, by kernel and card index."""
+    return {k: {str(c): n for c, n in sorted(v.items())} for k, v in ops.LAUNCH_CARDS.items() if v}
+
+
 def uncounted(ops, fn):
     """fn's result, with the launch counts left as they were before it."""
     launches = dict(ops.LAUNCHES)
-    shapes = {k: dict(v) for k, v in ops.LAUNCH_SHAPES.items()}
+    kept = [(counts, {k: dict(v) for k, v in counts.items()})
+            for counts in (ops.LAUNCH_SHAPES, ops.LAUNCH_CARDS)]
     out = fn()
     ops.LAUNCHES.update(launches)
-    for k, v in shapes.items():
-        ops.LAUNCH_SHAPES[k].clear()
-        ops.LAUNCH_SHAPES[k].update(v)
+    for counts, before in kept:
+        for k, v in before.items():
+            counts[k].clear()
+            counts[k].update(v)
     return out
 
 
@@ -1428,7 +1450,7 @@ def sharded_phase(torch, ops, api, encoder: str, d: int, dev):
             t0 = time.perf_counter()
             for x, y in steps:
                 models.append(api.partial_fit_sharded(models[-1], x, y, mesh=mesh))
-            sync(torch, dev)
+            sync_all(torch, mesh.devices.flat)
             return models[1:], time.perf_counter() - t0
 
         path = f"sharded_fit_{encoder}_d{d}_{name}"
@@ -1497,7 +1519,7 @@ def sharded_search_phase(torch, ops, api, model, images, stored, dev):
         def search(execution=execution, words=words, placed=placed):
             t0 = time.perf_counter()
             out = execution.search(placed, words, images, 8)
-            sync(torch, dev)
+            sync_all(torch, execution.mesh.devices.flat)
             return out, time.perf_counter() - t0
 
         path = f"sharded_search_x{n}"
@@ -1510,6 +1532,133 @@ def sharded_search_phase(torch, ops, api, model, images, stored, dev):
         if not equal:
             raise AssertionError(f"sharded search on {n} shards differs from kernel 5's")
     return by_path
+
+
+def sharded_cards_phase(torch, ops, api, result, stored, cards: list):
+    """The HDC paths on distinct cards, `cards` (cuda:0 .. cuda:N-1, N =
+    min(visible cards, 4)), held exactly against the one-card paths and JAX.
+
+    For each encoder at D = 8192, ``partial_fit_sharded`` of the smoke's 512 +
+    512 images on ``mesh_for()`` over the N cards (and, at N = 4, on a (data 2,
+    model 2) mesh of them), the class sums against the JAX package's checksums
+    and ``fit_s`` with every card of the mesh synchronised; those steps served
+    through a ``ServingEngine`` over ``ShardedExecution(devices=cards)``, and
+    the same steps loaded from the 4 per-host shards that ``sharded_phase``
+    wrote, each engine's labels (the smoke's stream) and ``search(k=3)``
+    against the one-card ``DeviceExecution`` engine's and the accuracy
+    against JAX's; the item-memory store (65,548 rows) searched (k = 8)
+    across the N cards against kernel 5's search on one card; a
+    ``ReplicaPool`` of N single-card replicas (``DeviceExecution(device=
+    cuda:i)``, each capturing its graph on its own card) under a hot reload
+    (:func:`pool_checks`).  At N = 1 the same code runs on the one card, and
+    the line says that its cross-card checks were one-card checks.  Returns
+    the launches and the N-card step-1 engine of each encoder."""
+    import numpy as np
+
+    n = len(cards)
+    names = [str(c) for c in cards]
+    ds = api.load_dataset("synth_mnist", n_train=1024, n_test=256)
+    steps = [(ds.train_images[:512], ds.train_labels[:512]),
+             (ds.train_images[512:], ds.train_labels[512:])]
+    meshes = {"cards": api.mesh_for(devices=cards)}
+    if n == 4:
+        meshes["2x2"] = api.mesh_for(4, 2, devices=cards)
+    probe = ds.test_images[:64]
+    checks, fits, serves, engines = {}, [], [], {}
+
+    def one_card(engine):
+        """The labels of the smoke's stream and search(k=3) of the probe."""
+        labels, _ = serve_batches(engine, ds.test_images, 64)
+        return labels, engine.search(probe, 3)
+
+    def run():
+        for encoder in ("uhd_dynamic", "uhd", "baseline"):
+            cfg = api.HDCConfig(n_features=ds.n_features, n_classes=ds.n_classes, d=8192,
+                                levels=16, encoder=encoder)
+            jax_sha, jax_acc = ((JAX_BASELINE_SHA256, JAX_BASELINE_SERVED_ACCURACY)
+                                if encoder == "baseline"
+                                else (JAX_CLASS_SUMS_SHA256, JAX_SERVED_ACCURACY))
+            fitted = {}
+            for name, mesh in meshes.items():
+                models = [api.HDCModel.create(cfg, device=cards[0])]
+                t0 = time.perf_counter()
+                for x, y in steps:
+                    models.append(api.partial_fit_sharded(models[-1], x, y, mesh=mesh))
+                sync_all(torch, mesh.devices.flat)
+                fit_s = time.perf_counter() - t0
+                got = [sha256_of(m.class_sums) for m in models[1:]]
+                checks[f"fit_{encoder}_{name}"] = got == list(jax_sha)
+                fits.append(dict(encoder=encoder, mesh=mesh.shape, shards=models[1].n_shards,
+                                 fit_s=fit_s, sha256_equal_jax=got == list(jax_sha)))
+                fitted[name] = models[1:]
+            ckpt = ROOT / "build" / f"chip_smoke_sharded_{encoder}_d8192"
+            want = uncounted(ops, lambda: [
+                one_card(api.ServingEngine.from_checkpoint(
+                    ckpt, step=s, batch_size=64, execution=api.DeviceExecution(device=cards[0])))
+                for s in (0, 1)])
+            forms = {f"fit_{name}": [
+                api.ServingEngine(m, batch_size=64, step=s,
+                                  execution=api.ShardedExecution(devices=cards))
+                for s, m in enumerate(models)] for name, models in fitted.items()}
+            forms["host_shards"] = [api.ServingEngine.from_checkpoint(
+                ckpt, step=s, batch_size=64, execution=api.ShardedExecution(devices=cards))
+                for s in (0, 1)]
+            for form, pair in forms.items():
+                got = [one_card(e) for e in pair]
+                half = len(ds.test_images) // 2  # step 0 serves the first half
+                labels = np.concatenate([got[0][0][:half], got[1][0][half:]])
+                acc = float((labels == ds.test_labels).mean())
+                same = all((g[0] == w[0]).all() and (g[1][0] == w[1][0]).all()
+                           and (g[1][1] == w[1][1]).all() for g, w in zip(got, want))
+                ok = same and round(acc, 4) == round(jax_acc, 4) and all(
+                    execution_cards(e.describe()["execution"]) == names
+                    and [st.device for st in e.streams] == [c for c in cards if c.type == "cuda"]
+                    for e in pair)
+                checks[f"serve_{encoder}_{form}"] = ok
+                serves.append(dict(encoder=encoder, form=form, accuracy=acc,
+                                   labels_and_search_equal_one_card=same,
+                                   execution=pair[1].describe()["execution"],
+                                   graph=pair[1].describe()["graph"],
+                                   streams=[str(st.device) for st in pair[1].streams]))
+            engines[encoder] = forms["host_shards"][1]
+
+        model, images = result.models[1], result.probe
+        rows = torch.from_numpy(np.ascontiguousarray(stored).view(np.int32)).to(cards[0])
+        want_i, want_d = uncounted(
+            ops, lambda: api.DeviceExecution(device=cards[0]).search(model, rows, images, 8))
+        ex = api.ShardedExecution(devices=cards)
+        words, placed = ex.shard_words(rows, model.cfg.d), ex.place(model)
+        t0 = time.perf_counter()
+        idx, dist = ex.search(placed, words, images, 8)
+        sync_all(torch, cards)
+        search = dict(rows=rows.shape[0], k=8, wall_ms=1e3 * (time.perf_counter() - t0),
+                      words_on=sorted({str(w.device) for w in words}),
+                      equal_one_card=bool(torch.equal(idx, want_i) and torch.equal(dist, want_d)))
+        checks["search"] = search["equal_one_card"]
+
+        blocks = [ds.test_images[i : i + 8] for i in range(0, 256, 8)]
+        executions = [api.DeviceExecution(device=c) for c in cards]
+        pool, step, reload_s, out = pool_under_reload(
+            api, result.engines[0].source, executions, blocks)
+        pool_line = pool_checks(ops, pool, step, out, result, ds.test_images)
+        replicas = [r.engine.describe() for r in pool.replicas]
+        pool_line.update(reload_s=reload_s, replicas=[d["execution"] for d in replicas],
+                         graphs=[len(d["graphs"]) for d in replicas])
+        checks["pool"] = pool_line["ok"] and all(
+            d["graph"] and d["graphs"] and d["execution"]["device"] == c
+            for d, c in zip(replicas, names))
+        return search, pool_line
+
+    t0 = time.perf_counter()
+    (search, pool_line), launches = path_launches(ops, "sharded_cards", tuple(KERNELS), run)
+    emit("sharded_cards", cards=n, devices=names, cross_card=n > 1,
+         note=None if n > 1 else "one card visible: every cross-card check ran on that card",
+         seconds=time.perf_counter() - t0, checks=checks, fits=fits, serves=serves,
+         search=search, pool=pool_line, launches_by_card=launches_by_card(ops))
+    if not all(checks.values()):
+        failed = [k for k, v in checks.items() if not v]
+        raise AssertionError(f"the sharded_cards phase failed {failed}")
+    return launches, engines
 
 
 def policy_phase(torch, ops, api, model, dev):
@@ -1735,6 +1884,14 @@ def sync(torch, dev) -> None:
         torch.cuda.synchronize(dev)
 
 
+def sync_all(torch, devices) -> None:
+    """Synchronise every distinct card of `devices` (a mesh's cells): a
+    sharded path leaves each slice's work on its own card, so a clock read
+    after syncing one card only would stop before the others finish."""
+    for dev in dict.fromkeys(devices):
+        sync(torch, dev)
+
+
 def _profile_step(torch, fn, n: int, n_wall: int = 200) -> dict:
     """Wall ms a batch of fn (each call ends with the labels on the host)
     over n_wall calls on the host clock, without the profiler (whose
@@ -1802,11 +1959,17 @@ def profile_phase(torch, engine, images, label: str) -> None:
     idle share.
     Where the profiler lists a replay without its kernels, the replay's
     device time is read from CUDA events instead (``device_source``); the
-    events' reading is reported beside the profiler's in any case."""
+    events' reading is reported beside the profiler's in any case.  An
+    engine over several cards has no graph: its eager step alone, whose
+    device time is the sum over its cards."""
     n = 16
     eager = _profile_step(
         torch, lambda: engine.execution.predict(engine.model, engine.class_words, images)
         .cpu().numpy(), n)
+    if not engine.describe()["graph"]:  # a mesh over several cards runs eagerly
+        emit("profile", engine=label, batch=len(images), batches=n, eager=eager, graph=None,
+             devices=execution_cards(engine.describe()["execution"]))
+        return
     graph = _profile_step(torch, lambda: engine.predict(images), n)
     events_ms = replay_device_ms(torch, engine, 50)
     graph["device_ms_events"] = events_ms
@@ -1816,81 +1979,94 @@ def profile_phase(torch, engine, images, label: str) -> None:
         graph["device_ms_per_batch"] = events_ms
         graph["idle_share"] = 1.0 - events_ms / graph["wall_ms_per_batch"]
     emit("profile", engine=label, batch=len(images), batches=n, eager=eager, graph=graph,
-         wall_speedup=eager["wall_ms_per_batch"] / graph["wall_ms_per_batch"])
+         wall_speedup=eager["wall_ms_per_batch"] / graph["wall_ms_per_batch"],
+         devices=execution_cards(engine.describe()["execution"]))
+
+
+def pool_under_reload(api, ckpt, executions: list, blocks: list):
+    """A ``ReplicaPool`` of one warmed engine an execution, registered from
+    `ckpt` at step 0, serving `blocks` (8 requests each) from a thread while
+    ``hot_reload`` promotes every replica to step 1 on this thread.  Returns
+    (pool, promoted step, reload seconds, [(block index, labels, steps of its
+    requests)])."""
+    import threading
+
+    registry = api.ModelRegistry()
+    try:
+        engines = [api.ServingEngine.from_checkpoint(ckpt, step=0, batch_size=64,
+                                                     execution=ex).warmup()
+                   for ex in executions]
+        pool = registry.register_pool("uhd", engines, start=True)
+        served, stop = [], threading.Event()
+
+        def traffic():
+            for i in range(10**6):
+                if stop.is_set():
+                    return
+                served.append((i % len(blocks), pool.submit_block(blocks[i % len(blocks)])))
+                time.sleep(0.0005)
+
+        t = threading.Thread(target=traffic, daemon=True)
+        t.start()
+        try:
+            while len(served) < 64:
+                time.sleep(0.001)
+            t0 = time.perf_counter()
+            step = registry.hot_reload("uhd", step=1)
+            reload_s = time.perf_counter() - t0
+            n = len(served)
+            while len(served) < n + 64:
+                time.sleep(0.001)
+        finally:
+            stop.set()
+            t.join(60)
+        out = [(i, [f.result(timeout=60) for f in futs], {f.trace.step for f in futs})
+               for i, futs in served]
+        pool.stop()
+        return pool, step, reload_s, out
+    finally:
+        registry.shutdown()
+
+
+def pool_checks(ops, pool, step, out, result, images) -> dict:
+    """The pool's checks: each block's labels against the single engine of
+    its step (eager, `result`'s engines), each block on one step, every
+    replica at step 1 after one promotion, nothing dropped, no error."""
+    want = {s: uncounted(ops, lambda e=e: e.execution.predict(
+        e.model, e.class_words, images).cpu().numpy().reshape(-1, 8))
+        for s, e in enumerate(result.engines)}
+    one_step = all(len(steps) == 1 for _, _, steps in out)
+    equal = one_step and all(labels == want[next(iter(steps))][i].tolist()
+                             for i, labels, steps in out)
+    merged = pool.merged_metrics()
+    fields = dict(
+        blocks=len(out), steps_seen=sorted({next(iter(s)) for _, _, s in out}),
+        each_block_one_step=one_step, labels_equal_single_engine=equal,
+        replica_steps=[r.engine.step for r in pool.replicas], pool_reloads=pool.metrics.n_reloads,
+        n_dispatched=[int(c) for c in pool.n_dispatched], n_requests=merged.n_requests,
+        n_errors=merged.n_errors, graph_replays=[r.engine.n_replays for r in pool.replicas])
+    fields["ok"] = (step == 1 and equal and fields["replica_steps"] == [1] * len(pool.replicas)
+                    and pool.metrics.n_reloads == 1 and merged.n_errors == 0
+                    and merged.n_requests == 8 * len(out))
+    return fields
 
 
 def serve_pool_phase(torch, ops, api, result, dev):
     """A ``ReplicaPool`` of two ``DeviceExecution`` replicas and one 4-shard
     ``ShardedExecution`` replica of the card, registered from the ``uhd``
     smoke's checkpoint (step 0), serving blocks of 8 requests from a thread
-    while ``hot_reload`` promotes every replica to step 1: each block's
-    labels against the single engine of its step (eager), each block on one
-    step, every replica at step 1 after one promotion."""
-    import threading
-
-    import numpy as np
-
+    while ``hot_reload`` promotes every replica to step 1 (:func:`pool_checks`)."""
     ds = api.load_dataset("synth_mnist", n_train=1024, n_test=256)
-    ckpt = result.engines[0].source
     blocks = [ds.test_images[i : i + 8] for i in range(0, 256, 8)]
-
-    def run():
-        registry = api.ModelRegistry()
-        try:
-            engines = [api.ServingEngine.from_checkpoint(ckpt, step=0, batch_size=64,
-                                                         execution=ex).warmup()
-                       for ex in (api.DeviceExecution(device=dev), api.DeviceExecution(device=dev),
-                                  api.ShardedExecution(devices=[dev] * 4))]
-            pool = registry.register_pool("uhd", engines, start=True)
-            served, stop = [], threading.Event()
-
-            def traffic():
-                for i in range(10**6):
-                    if stop.is_set():
-                        return
-                    served.append((i % len(blocks), pool.submit_block(blocks[i % len(blocks)])))
-                    time.sleep(0.0005)
-
-            t = threading.Thread(target=traffic, daemon=True)
-            t.start()
-            try:
-                while len(served) < 64:
-                    time.sleep(0.001)
-                t0 = time.perf_counter()
-                step = registry.hot_reload("uhd", step=1)
-                reload_s = time.perf_counter() - t0
-                n = len(served)
-                while len(served) < n + 64:
-                    time.sleep(0.001)
-            finally:
-                stop.set()
-                t.join(60)
-            out = [(i, [f.result(timeout=60) for f in futs], {f.trace.step for f in futs})
-                   for i, futs in served]
-            pool.stop()
-            return pool, step, reload_s, out
-        finally:
-            registry.shutdown()
-
+    executions = [api.DeviceExecution(device=dev), api.DeviceExecution(device=dev),
+                  api.ShardedExecution(devices=[dev] * 4)]
     (pool, step, reload_s, out), launches = path_launches(
-        ops, "serve_pool", ("encode_bundle", "hamming_topk", "hamming_packed"), run)
-    want = {s: uncounted(ops, lambda e=e: e.execution.predict(
-        e.model, e.class_words, ds.test_images).cpu().numpy().reshape(-1, 8))
-        for s, e in enumerate(result.engines)}
-    one_step = all(len(steps) == 1 for _, _, steps in out)
-    equal = one_step and all(labels == want[next(iter(steps))][i].tolist()
-                             for i, labels, steps in out)
-    merged = pool.merged_metrics()
+        ops, "serve_pool", ("encode_bundle", "hamming_topk", "hamming_packed"),
+        lambda: pool_under_reload(api, result.engines[0].source, executions, blocks))
+    checks = pool_checks(ops, pool, step, out, result, ds.test_images)
     emit("serve_pool", replicas=[r.engine.describe()["placement"] for r in pool.replicas],
-         blocks=len(out), steps_seen=sorted({next(iter(s)) for _, _, s in out}),
-         each_block_one_step=one_step, labels_equal_single_engine=equal,
-         replica_steps=[r.engine.step for r in pool.replicas], pool_reloads=pool.metrics.n_reloads,
-         reload_s=reload_s, n_dispatched=[int(c) for c in pool.n_dispatched],
-         n_requests=merged.n_requests, n_errors=merged.n_errors,
-         graph_replays=[r.engine.n_replays for r in pool.replicas])
-    if not (step == 1 and equal and [r.engine.step for r in pool.replicas] == [1, 1, 1]
-            and pool.metrics.n_reloads == 1 and merged.n_errors == 0
-            and merged.n_requests == 8 * len(out)):
+         reload_s=reload_s, **checks)
+    if not checks["ok"]:
         raise AssertionError("the replica pool failed its checks")
     return launches
 
@@ -1910,8 +2086,63 @@ def _stage_p50s(snap: dict) -> dict:
     return {f"{k}_p50_ms": v["p50_ms"] for k, v in snap["stages"].items()}
 
 
-# kernels that no network phase launches (their engines pin one card each)
-NOT_ON_NETWORK_PATHS = ("hamming_packed", "encode_unary_mxu", "bundle_binarize")
+# Each network path's endpoints (the replicas of each), and the encode and fit
+# kernels that are on it and not on it.  No network path runs the baseline's
+# kernels; which scoring kernel it launches follows its replicas' plan.
+NETWORK_PATHS = {
+    "serve_http": ((1,), ("encode_bundle", "encode_bundle_dynamic", "fit_bundle"),
+                   ("fit_bundle_dynamic",)),
+    "serve_http_pool": ((2,), ("encode_bundle", "encode_bundle_dynamic", "fit_bundle"),
+                        ("fit_bundle_dynamic",)),
+    "serve_online_uhd": ((1,), ("encode_bundle", "fit_bundle"),
+                         ("encode_bundle_dynamic", "fit_bundle_dynamic")),
+    "serve_online_uhd_dynamic": ((1,), ("encode_bundle_dynamic", "fit_bundle_dynamic"),
+                                 ("encode_bundle", "fit_bundle")),
+    "obs_agg": ((2, 1), ("encode_bundle", "fit_bundle"),
+                ("encode_bundle_dynamic", "fit_bundle_dynamic")),
+}
+NOT_ON_NETWORK_PATHS = ("encode_unary_mxu", "bundle_binarize")
+
+
+def execution_cards(desc: dict) -> list[str]:
+    """The distinct devices of an execution's ``describe()``, in order."""
+    return list(dict.fromkeys(desc.get("devices") or [desc["device"]]))
+
+
+def network_plan(name: str, plan_executions, devices) -> dict:
+    """What the network path `name` must launch and must not, and which of its
+    engines capture a graph, from the replicas that ``plan_executions`` gives
+    its endpoints over `devices` (the visible cards), as its launcher plans
+    them.  A replica on one card captures its step and scores with
+    ``hamming_topk``; one sharded over several cards runs eagerly and scores
+    each shard with ``hamming_packed``."""
+    replicas, kernels, absent = NETWORK_PATHS[name]
+    execs = [e for n in replicas for e in plan_executions(8192, replicas=n, devices=devices)]
+    cards = [execution_cards(e.describe()) for e in execs]
+    sharded = any(e.placement == "sharded" for e in execs)
+    pinned = any(e.placement == "device" for e in execs)
+    return {
+        "replicas": cards,
+        "graphs": [len(c) == 1 for c in cards],
+        "kernels": kernels + ("hamming_topk",) * pinned + ("hamming_packed",) * sharded,
+        "absent": absent + NOT_ON_NETWORK_PATHS + ("hamming_packed",) * (not sharded),
+    }
+
+
+def visible_plan(name: str) -> dict:
+    """:func:`network_plan` over this machine's cards."""
+    from repro_torch.distributed.sharding import local_devices
+    from repro_torch.serving import plan_executions
+
+    return network_plan(name, plan_executions, local_devices())
+
+
+def plan_held(plan: dict, engines: list) -> bool:
+    """Whether `engines` (one a replica) lie on the plan's cards, capture a
+    graph exactly where the plan says, and each graph engine replayed."""
+    return ([execution_cards(e.describe()["execution"]) for e in engines] == plan["replicas"]
+            and [e.describe()["graph"] for e in engines] == plan["graphs"]
+            and all(e.n_replays > 0 for e, g in zip(engines, plan["graphs"]) if g))
 
 
 def serve_http_phase(torch, ops, serve_http, replicas: int) -> dict:
@@ -1929,10 +2160,10 @@ def serve_http_phase(torch, ops, serve_http, replicas: int) -> dict:
         "--smoke", "--d", "8192", "--device", "cuda", "--replicas", str(replicas),
         "--ckpt", str(fresh_dir(f"chip_smoke_ckpt_{name}")),
     ])
+    plan = visible_plan(name)
     t0 = time.perf_counter()
-    r, launches = path_launches(
-        ops, name, ("encode_bundle", "encode_bundle_dynamic", "fit_bundle", "hamming_topk"),
-        lambda: serve_http.smoke(args), ("fit_bundle_dynamic",) + NOT_ON_NETWORK_PATHS)
+    r, launches = path_launches(ops, name, plan["kernels"], lambda: serve_http.smoke(args),
+                                plan["absent"])
     seconds = time.perf_counter() - t0
     labels_sha = hashlib.sha256(r.labels.astype("<i4").tobytes()).hexdigest()
     sums_sha = sha256_of(r.model.class_sums)
@@ -1950,6 +2181,7 @@ def serve_http_phase(torch, ops, serve_http, replicas: int) -> dict:
         serve_s=r.serve_s, n_reloads=snap["n_reloads"], n_shed=snap["n_shed"],
         n_errors=snap["n_errors"], batch_occupancy=snap["batch_occupancy"],
         graph_replays=[r.engine0.n_replays] + [e.n_replays for e in r.engines],
+        plan=plan, plan_held=plan_held(plan, r.engines),
     )
     if replicas > 1:
         out["health_replicas"] = [(x["replica"], x["step"]) for x in r.health["replicas"]]
@@ -1961,8 +2193,7 @@ def serve_http_phase(torch, ops, serve_http, replicas: int) -> dict:
           and out["search_k3_column0_equals_labels"]
           and promoted == [(1, "uhd_dynamic")] * replicas
           and r.steps_served.get(0, 0) > 0 and r.steps_served.get(1, 0) > 0
-          and snap["n_errors"] == 0 and snap["n_reloads"] >= 1
-          and all(e.n_replays > 0 for e in r.engines))
+          and snap["n_errors"] == 0 and snap["n_reloads"] >= 1 and out["plan_held"])
     if replicas > 1:
         ok = ok and out["health_replicas"] == [(i, 1) for i in range(replicas)] \
             and out["prometheus_replicas"] == ["0", "1", "pool"]
@@ -1982,11 +2213,10 @@ def serve_online_phase(torch, ops, serve_online, encoder: str) -> dict:
         "--smoke", "--d", "8192", "--device", "cuda", "--encoder", encoder,
         "--ckpt", str(fresh_dir(f"chip_smoke_ckpt_{name}")),
     ])
-    table, dynamic = ("fit_bundle", "encode_bundle"), ("fit_bundle_dynamic", "encode_bundle_dynamic")
-    on, off = (table, dynamic) if encoder == "uhd" else (dynamic, table)
+    plan = visible_plan(name)
     t0 = time.perf_counter()
-    r, launches = path_launches(ops, name, on + ("hamming_topk",),
-                                lambda: serve_online.smoke(args), off + NOT_ON_NETWORK_PATHS)
+    r, launches = path_launches(ops, name, plan["kernels"], lambda: serve_online.smoke(args),
+                                plan["absent"])
     seconds = time.perf_counter() - t0
     promoted_sha = hashlib.sha256(r.promoted_sums.astype("<i4").tobytes()).hexdigest()
     online, snap = r.online, r.metrics
@@ -2017,13 +2247,16 @@ def obs_agg_phase(torch, ops, obs_agg) -> dict:
     the cross-hop id, the window rate, the strict exposition parse and the
     killed target's staleness."""
     args = obs_agg.parser().parse_args(["--smoke", "--d", "8192", "--device", "cuda"])
+    plan = visible_plan("obs_agg")
     t0 = time.perf_counter()
-    out, launches = path_launches(ops, "obs_agg", ("encode_bundle", "fit_bundle", "hamming_topk"),
-                                  lambda: obs_agg.smoke(args),
-                                  ("encode_bundle_dynamic", "fit_bundle_dynamic")
-                                  + NOT_ON_NETWORK_PATHS)
-    emit("obs_agg", seconds=time.perf_counter() - t0, **out)
-    if not (out["request_rate_rps"] and out["tracked_replica"] in (0, 1)
+    out, launches = path_launches(ops, "obs_agg", plan["kernels"], lambda: obs_agg.smoke(args),
+                                  plan["absent"])
+    # the single endpoint serves half blocks: which graph engine replays varies
+    engines = out["engines"]
+    held = ([execution_cards(e["execution"]) for e in engines] == plan["replicas"]
+            and [e["graph"] for e in engines] == plan["graphs"])
+    emit("obs_agg", seconds=time.perf_counter() - t0, plan=plan, plan_held=held, **out)
+    if not (out["request_rate_rps"] and out["tracked_replica"] in (0, 1) and held
             and out["graph_replays"] > 0):
         raise AssertionError("the obs_agg phase failed its checks")
     return launches
@@ -3466,6 +3699,9 @@ def main() -> int:
         torch, ops, api, result_uhd.models[1], result_uhd.probe, stored, dev
     ))
     by_path["train_shard_map"] = train_shard_map_phase(torch, ops, train_hdc)
+    cards = [torch.device("cuda", i) for i in range(min(count, 4))]
+    by_path["sharded_cards"], cards_engines = sharded_cards_phase(
+        torch, ops, api, result_uhd, stored, cards)
     uhd_kernels = ("encode_bundle", "fit_bundle", "encode_bundle_dynamic", "fit_bundle_dynamic",
                    "hamming_packed")
     builds0 = encoding.BASELINE_OPERANDS.builds
@@ -3483,6 +3719,9 @@ def main() -> int:
     profile_phase(torch, sharded_engines["uhd", 8192], probe, "uhd, 4 shards")
     profile_phase(torch, result_base.engines[1], probe, "baseline")
     profile_phase(torch, sharded_engines["baseline", 8192], probe, "baseline, 4 shards")
+    if len(cards) > 1:  # the same 4-shard engines' work over distinct cards
+        for encoder, engine in cards_engines.items():
+            profile_phase(torch, engine, probe, f"{encoder}, {len(cards)} cards")
 
     from repro_torch.configs import get_config
 

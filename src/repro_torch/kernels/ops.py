@@ -8,7 +8,8 @@ call raises.  There is no fallback from one to the other.
 
 ``LAUNCHES`` counts, per wrapper, the calls that launched its kernel,
 and ``LAUNCH_SHAPES`` the same calls by the shape they ran at (a short
-``"B=64 H=784 D=8192 ..."`` key); ``chip_smoke.py`` zeroes both before
+``"B=64 H=784 D=8192 ..."`` key), and ``LAUNCH_CARDS`` by the index of
+the card they ran on; ``chip_smoke.py`` zeroes them before
 driving each path and reads them after, to show that the path ran
 through the kernels and to price each shape's launches.  One call of
 ``hamming_topk`` is one launch on its warp path, else one scan launch
@@ -42,6 +43,7 @@ LAUNCHES: dict[str, int] = {
     "bundle_binarize": 0,
 }
 LAUNCH_SHAPES: dict[str, dict[str, int]] = {name: {} for name in LAUNCHES}
+LAUNCH_CARDS: dict[str, dict[int, int]] = {name: {} for name in LAUNCHES}
 
 #: grid-dimension limits of the kernels (the encodes' grid runs 64-row tiles along z,
 #: the direct training step 128-row tiles along y, each at most 65535; kernel 7's grid
@@ -77,15 +79,17 @@ def reset_launches() -> None:
         for name in LAUNCHES:
             LAUNCHES[name] = 0
             LAUNCH_SHAPES[name].clear()
+            LAUNCH_CARDS[name].clear()
 
 
-def add_launches(launches: list[tuple[str, str]]) -> None:
-    """Count launches given as (wrapper name, shape key) pairs: the
-    kernels a CUDA graph replay runs (see :func:`recording`)."""
+def add_launches(launches: list[tuple[str, str, int]]) -> None:
+    """Count launches given as (wrapper name, shape key, card index)
+    triples: the kernels a CUDA graph replay runs (see :func:`recording`)."""
     with _count_lock:
-        for name, key in launches:
+        for name, key, card in launches:
             LAUNCHES[name] += 1
             LAUNCH_SHAPES[name][key] = LAUNCH_SHAPES[name].get(key, 0) + 1
+            LAUNCH_CARDS[name][card] = LAUNCH_CARDS[name].get(card, 0) + 1
 
 
 @contextlib.contextmanager
@@ -94,7 +98,7 @@ def recording():
     counting them: under a CUDA graph capture a wrapper's kernel is
     recorded into the graph, not run, and runs at each replay, which
     counts the list with :func:`add_launches`."""
-    launches: list[tuple[str, str]] = []
+    launches: list[tuple[str, str, int]] = []
     _capturing.launches = launches
     try:
         yield launches
@@ -102,13 +106,14 @@ def recording():
         _capturing.launches = None
 
 
-def _launched(name: str, **dims) -> None:
+def _launched(name: str, dev: torch.device, **dims) -> None:
     key = " ".join(f"{k}={v}" for k, v in dims.items())
+    launch = (name, key, torch.cuda.current_device() if dev.index is None else dev.index)
     captured = getattr(_capturing, "launches", None)
     if captured is not None:
-        captured.append((name, key))
+        captured.append(launch)
     else:
-        add_launches([(name, key)])
+        add_launches([launch])
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -202,7 +207,7 @@ def encode_bundle(x_q: torch.Tensor, sobol_q: torch.Tensor) -> torch.Tensor:
             _ptr(x), _ptr(tab), tab_bytes, _ptr(out), b, h, d, _stream(x.device)
         )
     _check(err, "encode_bundle")
-    _launched("encode_bundle", B=b, H=h, D=d, table=_dtype_name(tab))
+    _launched("encode_bundle", x.device, B=b, H=h, D=d, table=_dtype_name(tab))
     return out
 
 
@@ -266,7 +271,8 @@ def fit_bundle(
                 _stream(x.device),
             )
     _check(err, "fit_bundle")
-    _launched("fit_bundle", B=b, H=h, C=n_classes, D=d, table=_dtype_name(tab), path=path)
+    _launched("fit_bundle", x.device, B=b, H=h, C=n_classes, D=d, table=_dtype_name(tab),
+              path=path)
     return sums
 
 
@@ -290,7 +296,7 @@ def encode_bundle_dynamic(
             _stream(x.device),
         )
     _check(err, "encode_bundle_dynamic")
-    _launched("encode_bundle_dynamic", B=b, H=h, D=d, dir=_dtype_name(dirs))
+    _launched("encode_bundle_dynamic", x.device, B=b, H=h, D=d, dir=_dtype_name(dirs))
     return out
 
 
@@ -338,7 +344,8 @@ def fit_bundle_dynamic(
                 n_classes, d, int(skip), _stream(x.device),
             )
     _check(err, "fit_bundle_dynamic")
-    _launched("fit_bundle_dynamic", B=b, H=h, C=n_classes, D=d, dir=_dtype_name(dirs), path=path)
+    _launched("fit_bundle_dynamic", x.device, B=b, H=h, C=n_classes, D=d,
+              dir=_dtype_name(dirs), path=path)
     return sums
 
 
@@ -382,7 +389,7 @@ def hamming_topk(
             _ptr(scratch[1]), _ptr(idx), _ptr(dist), _stream(dev),
         )
     _check(err, "hamming_topk")
-    _launched("hamming_topk", B=b, C=c, W=w, k=k, path=path)
+    _launched("hamming_topk", dev, B=b, C=c, W=w, k=k, path=path)
     return idx, dist
 
 
@@ -415,7 +422,7 @@ def hamming_packed(q_words: torch.Tensor, c_words: torch.Tensor, d: int) -> torc
             _stream(q.device),
         )
     _check(err, "hamming_packed")
-    _launched("hamming_packed", B=b, C=c, W=w, path=path)
+    _launched("hamming_packed", q.device, B=b, C=c, W=w, path=path)
     return out
 
 
@@ -453,7 +460,7 @@ def encode_unary_mxu_operands(u: torch.Tensor, onehot_t: torch.Tensor, h: int) -
             _ptr(u), _ptr(onehot_t), b, d, k + pad, int(h), _ptr(out), _stream(u.device)
         )
     _check(err, "encode_unary_mxu")
-    _launched("encode_unary_mxu", B=b, K=k + pad, D=d,
+    _launched("encode_unary_mxu", u.device, B=b, K=k + pad, D=d,
               tile="wide" if lib.uhd_encode_unary_mxu_wide(b, d) else "narrow")
     return out
 
@@ -494,5 +501,6 @@ def bundle_binarize(
         cluster = lib.uhd_bundle_binarize_cluster(n_classes, d, int(binarize),
                                                   int(hv.data_ptr() % 16 == 0))
     _check(err, "bundle_binarize")
-    _launched("bundle_binarize", B=b, C=n_classes, D=d, binarize=bool(binarize), cluster=cluster)
+    _launched("bundle_binarize", hv.device, B=b, C=n_classes, D=d, binarize=bool(binarize),
+              cluster=cluster)
     return out

@@ -242,6 +242,10 @@ def smoke(args) -> dict:
         "stale_error": by_name["single"]["last_error"],
         "survivor_requests": [before, after],
         "graph_replays": sum(e.n_replays for e in engines),
+        "engines": [
+            {"execution": d["execution"], "graph": d["graph"], "n_replays": d["n_replays"]}
+            for d in (e.describe() for e in engines)
+        ],
     }
 
 

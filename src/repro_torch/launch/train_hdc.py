@@ -55,9 +55,12 @@ class TrainResult:
     baseline_accs: list[float] = dataclasses.field(default_factory=list)
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def _sync(devices) -> None:
+    """Wait for every distinct card of `devices`: a sharded fit leaves each
+    slice's sums on its own card."""
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def train(args, on_retrain=None) -> TrainResult:
@@ -93,6 +96,7 @@ def _train(args, on_retrain) -> TrainResult:
                    ds.train_labels[i : i + args.batch_size])
 
     fresh = HDCModel.create(cfg, device=device)
+    fit_devices = [device]
     t0 = time.perf_counter()
     if args.shard_map:
         mesh = mesh_for(devices=None if device.type == "cuda" else [device])
@@ -101,10 +105,11 @@ def _train(args, on_retrain) -> TrainResult:
         for images, labels in batches():
             model = partial_fit_sharded(model, images, labels, mesh=mesh)
         mode = f"shard_map {describe(mesh)}"
+        fit_devices = list(mesh.devices.flat)
     else:
         model = fresh.fit_batches(batches())
         mode = "single device"
-    _sync(device)
+    _sync(fit_devices)
     t1 = time.perf_counter()
     acc = model.evaluate(ds.test_images, ds.test_labels)
     t2 = time.perf_counter()

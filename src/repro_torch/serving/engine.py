@@ -22,13 +22,21 @@ eagerly, as a new shape retraces in JAX; so does every step on the CPU
 (which has no graphs) and on a mesh over several cards.  A capture that
 fails raises: there is no fallback to the eager step.
 
-Every step, eager or replayed, runs on the engine's own stream
-(:attr:`ServingEngine.stream`, not the default stream) and is waited on
-with an event, never a device-wide synchronise: a hot reload captures
-the new engine's graph on the caller's thread while the drain thread
-still serves the old engine, and work on the default stream or a
-device-wide wait from either thread would break that capture.  One step
-runs at a time on an engine.
+Every step, eager or replayed, runs on the engine's own streams, never
+a card's default stream: one `torch.cuda.Stream` on each card that the
+placed model's shards lie on (:attr:`ServingEngine.streams`), the output
+card's being :attr:`ServingEngine.stream`.  Each waits at construction
+on the constructing thread's current stream of its card, where the
+model was placed and its words packed, and a step makes all of them
+current, so a shard's encode and score on another card, and every
+copy between cards, run on engine streams (a copy between two cards
+orders the current streams of both).  The step is waited on with an
+event of the output stream, recorded after the partials are summed
+there, never with a device-wide synchronise: a hot reload captures the
+new engine's graph on the caller's thread while the drain thread still
+serves the old engine, and work on the default stream or a device-wide
+wait from either thread would break that capture.  One step runs at a
+time on an engine.
 """
 
 from __future__ import annotations
@@ -52,17 +60,24 @@ __all__ = ["OP_PREDICT", "ServingEngine", "resolve_impl"]
 OP_PREDICT = ("predict", 0)
 
 
+def _card(dev: torch.device) -> torch.device:
+    return torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def _stream_devices(model) -> list[torch.device]:
+    """The distinct cards a placed model's shards lie on, the output
+    device first: the engine owns a stream on each.  Empty on the CPU."""
+    shards = getattr(model, "shards", None)
+    devs = [model.device] + ([sh.device for sh in shards] if shards is not None else [])
+    cards = [_card(d) for d in devs if d.type == "cuda"]
+    return list(dict.fromkeys(cards))
+
+
 def _graph_device(model) -> torch.device | None:
     """The one CUDA device every shard of a placed model lies on, or None
     (the CPU, or a mesh over several cards: those run eagerly)."""
-    shards = getattr(model, "shards", None)
-    devs = {sh.device for sh in shards} if shards is not None else {model.device}
-    if len(devs) != 1:
-        return None
-    (dev,) = devs
-    if dev.type != "cuda":
-        return None
-    return torch.device("cuda", torch.cuda.current_device() if dev.index is None else dev.index)
+    cards = _stream_devices(model)
+    return cards[0] if len(cards) == 1 else None
 
 
 class _Graph:
@@ -101,10 +116,12 @@ class ServingEngine:
         self.class_words = self.execution.pack(self.model)
         out = self.model.device
         self._graph_device = _graph_device(self.model)
-        self.stream = torch.cuda.Stream(device=out) if out.type == "cuda" else None
-        if self.stream is not None:
-            # the model and its words were made on the loading thread's stream
-            self.stream.wait_stream(torch.cuda.current_stream(out))
+        #: one stream a card of the placed model, the output card's first
+        self.streams = [torch.cuda.Stream(device=dev) for dev in _stream_devices(self.model)]
+        for s in self.streams:
+            # the model and its words were made on the loading thread's streams
+            s.wait_stream(torch.cuda.current_stream(s.device))
+        self.stream = self.streams[0] if self.streams else None
         self._lock = threading.RLock()
         shape = (self.batch_size, self.model.cfg.n_features)
         self._staging = torch.zeros(shape, dtype=torch.float32, pin_memory=out.type == "cuda")
@@ -188,8 +205,13 @@ class ServingEngine:
             return self.execution.search(self.model, self.class_words, images, op[1])
         return (self.execution.predict(self.model, self.class_words, images),)
 
-    def _on_stream(self):
-        return torch.cuda.stream(self.stream) if self.stream is not None else contextlib.nullcontext()
+    def _on_stream(self) -> contextlib.ExitStack:
+        """Make every engine stream current on its card, the output card's
+        last, so that the output card is also the current device."""
+        stack = contextlib.ExitStack()
+        for s in reversed(self.streams):
+            stack.enter_context(torch.cuda.stream(s))
+        return stack
 
     def _eager(self, op: tuple[str, int], images):
         with self._on_stream():
