@@ -6,6 +6,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +24,10 @@ from repro_torch.configs import get_smoke_config as tget_smoke
 from repro_torch.models import params as tparams_mod
 from repro_torch.models import transformer as tt
 
+SRC = Path(__file__).resolve().parents[1] / "src"
+#: the relative weight change of the conditioning witness (:func:`moved`)
+MOVE = 1e-6
+
 
 def as_f32(cfg):
     return dataclasses.replace(cfg, compute_dtype="float32")
@@ -27,6 +35,12 @@ def as_f32(cfg):
 
 @functools.lru_cache(maxsize=None)
 def jax_params(arch: str):
+    """JAX's smoke parameters as its ``init_params`` draws them in this
+    process.  It salts each leaf's key with Python's ``hash()`` of the
+    leaf's path, so the weights differ from process to process (with
+    ``PYTHONHASHSEED``): checks held to a fixed tolerance take
+    :func:`fixed_params`, and a given draw is reproduced by
+    :func:`draw_jax_params`."""
     cfg = jget_smoke(arch)
     tree = jax.jit(lambda k: jparams_mod.init_params(cfg, k))(jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, tree)
@@ -53,37 +67,121 @@ def cut(batch: dict, lo: int, hi: int) -> dict:
     return {k: (v if k == "ctx" else v[:, lo:hi]) for k, v in batch.items()}
 
 
-def run_both(jcfg, tcfg, jtree, batch: dict, s: int, n_dec: int):
-    """Full-forward logits, prefill logits on the first s positions and
-    n_dec teacher-forced decode steps, from JAX (jitted) and the port."""
-    tparams = convert.lm_params_from_jax(tcfg, jtree, "cpu")
-    jp = jax.tree.map(jnp.asarray, jtree)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+@functools.lru_cache(maxsize=None)
+def _jax_fns(jcfg):
+    """JAX's jitted full forward, prefill and decode step for `jcfg`, made
+    once per config so that each compiles once per shape."""
 
-    def jfull(p, b):
+    def full(p, b):
         n = b["tokens"].shape[1]
         pos = jnp.arange(n)[None]
         x = jt.embed_inputs(jcfg, p, b, pos)
         x, _, _ = jt.run_stack(jcfg, p, x, mode="train", positions=pos, ctx=b.get("ctx"))
         return jt.unembed(jcfg, p, jt.layers.rms_norm(x, p["final_norm"]))
 
-    jout = [np.asarray(jax.jit(jfull)(jp, jb))]
-    tout = [tt.forward_logits(tcfg, tparams, tb).numpy()]
-    jl, jst = jax.jit(lambda p, b: jt.prefill(jcfg, p, b))(jp, cut(jb, 0, s))
+    return (jax.jit(full), jax.jit(lambda p, b: jt.prefill(jcfg, p, b)),
+            jax.jit(lambda p, st, tok, ex: jt.decode_step(jcfg, p, st, tok, **ex)))
+
+
+def jax_run(jcfg, jtrees: list, batch: dict, s: int, n_dec: int) -> list[list[np.ndarray]]:
+    """For each tree of `jtrees`: JAX's full-forward logits, prefill logits
+    on the first s positions and n_dec teacher-forced decode steps (jitted)."""
+    full, pre, dec = _jax_fns(jcfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    outs = []
+    for jtree in jtrees:
+        jp = jax.tree.map(jnp.asarray, jtree)
+        out = [np.asarray(full(jp, jb))]
+        jl, jst = pre(jp, cut(jb, 0, s))
+        out.append(np.asarray(jl))
+        for i in range(s, s + n_dec):
+            step = cut(jb, i, i + 1)
+            jl, jst = dec(jp, jst, step["tokens"], {k: v for k, v in step.items() if k == "embeddings"})
+            out.append(np.asarray(jl))
+        outs.append(out)
+    return outs
+
+
+def port_run(tcfg, jtree, batch: dict, s: int, n_dec: int) -> list[np.ndarray]:
+    """The port's outputs of :func:`jax_run` on JAX's tree, carried across
+    by ``convert.lm_params_from_jax``."""
+    tparams = convert.lm_params_from_jax(tcfg, jtree, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    out = [tt.forward_logits(tcfg, tparams, tb).numpy()]
     tl, tst = tt.prefill(tcfg, tparams, cut(tb, 0, s))
-    jout.append(np.asarray(jl))
-    tout.append(tl.numpy())
-    jdec = jax.jit(lambda p, st, tok, ex: jt.decode_step(jcfg, p, st, tok, **ex))
+    out.append(tl.numpy())
     for i in range(s, s + n_dec):
-        step = cut(batch, i, i + 1)
-        extra = {k: v for k, v in step.items() if k == "embeddings"}
-        jl, jst = jdec(jp, jst, jnp.asarray(step["tokens"]), {k: jnp.asarray(v) for k, v in extra.items()})
-        tl, tst = tt.decode_step(tcfg, tparams, tst, torch.from_numpy(step["tokens"]),
-                                 **{k: torch.from_numpy(v) for k, v in extra.items()})
-        jout.append(np.asarray(jl))
-        tout.append(tl.numpy())
-    return jout, tout
+        step = cut(tb, i, i + 1)
+        tl, tst = tt.decode_step(tcfg, tparams, tst, step["tokens"],
+                                 **{k: v for k, v in step.items() if k == "embeddings"})
+        out.append(tl.numpy())
+    return out
+
+
+def run_both(jcfg, tcfg, jtree, batch: dict, s: int, n_dec: int):
+    """Full-forward logits, prefill logits on the first s positions and
+    n_dec teacher-forced decode steps, from JAX (jitted) and the port."""
+    return jax_run(jcfg, [jtree], batch, s, n_dec)[0], port_run(tcfg, jtree, batch, s, n_dec)
+
+
+def moved(jtree):
+    """`jtree` with every weight scaled by (1 + MOVE * eps), eps standard
+    normal from numpy's generator of seed 0, drawn leaf by leaf in
+    :func:`flat_keys` order (computed in float64, rounded to the leaf's dtype)."""
+    rng = np.random.default_rng(0)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(t[k]) for k in sorted(t)}
+        a = np.asarray(t)
+        return (a.astype(np.float64) * (1 + MOVE * rng.standard_normal(a.shape))).astype(a.dtype)
+
+    return walk(jtree)
+
+
+def witness_moves(jcfg, jtree, batch: dict, s: int, n_dec: int):
+    """JAX's outputs of :func:`jax_run` on `jtree`, and for each output the
+    largest absolute move of JAX's own output when the weights are
+    :func:`moved` by 1e-6 of themselves: the float32 conditioning of the
+    function at this draw."""
+    jout, jnear = jax_run(jcfg, [jtree, moved(jtree)], batch, s, n_dec)
+    return jout, [float(np.abs(a - b).max()) for a, b in zip(jnear, jout)]
+
+
+def check_within_witness(jout, tout, moves) -> None:
+    """Every output's largest port-to-JAX distance is at most JAX's own
+    move under the 1e-6 relative weight change (factor 1)."""
+    for i, (j, t, mv) in enumerate(zip(jout, tout, moves)):
+        assert t.shape == j.shape and np.isfinite(t).all(), i
+        dist = float(np.abs(t - j).max())
+        assert dist <= mv, f"output {i}: port-to-JAX {dist:.3e} > JAX's own 1e-6 move {mv:.3e}"
+
+
+def draw_jax_params(archs, hashseed: int, path: Path) -> dict[str, dict]:
+    """:func:`jax_params` of each arch as a process whose ``PYTHONHASHSEED``
+    is `hashseed` draws them, made in such a subprocess and passed back as
+    an ``.npz`` at `path`: a reproducible JAX weight draw."""
+    code = "import sys, torch_lm_parity as m; m._save_draw(sys.argv[1], sys.argv[2:])"
+    paths = [str(SRC), str(Path(__file__).parent), os.environ.get("PYTHONPATH", "")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(paths), PYTHONHASHSEED=str(hashseed),
+               JAX_PLATFORMS="cpu")
+    res = subprocess.run([sys.executable, "-c", code, str(path), *archs], capture_output=True,
+                         text=True, timeout=600, env=env)
+    assert res.returncode == 0, res.stderr[-4000:]
+    with np.load(path) as z:
+        def walk(spec, pre):  # the tree of JAX's param_specs, empty groups kept
+            if isinstance(spec, dict):
+                return {k: walk(v, f"{pre}{k}/") for k, v in spec.items()}
+            return z[pre[:-1]]
+
+        return {arch: walk(jparams_mod.param_specs(jget_smoke(arch)), f"{arch}:") for arch in archs}
+
+
+def _save_draw(path: str, archs: list[str]) -> None:
+    """This process's :func:`jax_params` of `archs` to an ``.npz``, keyed
+    ``arch:`` + :func:`flat_keys` (the subprocess of :func:`draw_jax_params`)."""
+    np.savez(path, **{f"{arch}:{k}": v for arch in archs
+                      for k, v in zip(flat_keys(jax_params(arch)), jax.tree.leaves(jax_params(arch)))})
 
 
 def flat_keys(tree, prefix: str = "") -> list[str]:
