@@ -30,6 +30,7 @@ from torch import nn
 
 from repro_torch.core import encoding, metrics, registry, unary
 from repro_torch.core.model import HDCConfig, config_from_manifest, manifest_config
+from repro_torch.obs.profiler import span
 
 _NSEEN_LIMIT = 1 << 64
 
@@ -173,28 +174,33 @@ class HDCModel(nn.Module):
     def pack(self) -> torch.Tensor:
         """Class HVs centered per `pack_center`, sign-packed to (C, W)
         int32 words: the pack-once serving artifact."""
-        return unary.pack_hypervector(_centered(self.cfg, self.class_hvs))
+        with span("model.pack"):
+            return unary.pack_hypervector(_centered(self.cfg, self.class_hvs))
 
     def pack_queries(self, q: torch.Tensor) -> torch.Tensor:
         """Encoded queries (B, D) -> packed sign bits (B, W), same policy."""
-        return unary.pack_hypervector(_centered(self.cfg, q))
+        with span("model.pack"):
+            return unary.pack_hypervector(_centered(self.cfg, q))
 
     # -- core ops --------------------------------------------------------
 
     def _tensor(self, a) -> torch.Tensor:
-        if isinstance(a, torch.Tensor):
-            return a.to(self.device)
-        return torch.as_tensor(np.asarray(a)).to(self.device)
+        with span("model.copy_in"):
+            if isinstance(a, torch.Tensor):
+                return a.to(self.device)
+            return torch.as_tensor(np.asarray(a)).to(self.device)
 
     def quantize(self, images) -> torch.Tensor:
         cfg = self.cfg
-        return encoding.quantize_images(self._tensor(images), cfg.levels, cfg.max_intensity)
+        x = self._tensor(images)
+        with span("model.quantize"):
+            return encoding.quantize_images(x, cfg.levels, cfg.max_intensity)
 
     def encode(self, images) -> torch.Tensor:
         """Raw images (B, H) -> non-binary hypervectors (B, D) int32."""
-        return self.encoder.encode(
-            self.cfg, self.codebooks, self.quantize(images), backend=self.cfg.backend
-        )
+        x_q = self.quantize(images)
+        with span("model.encode"):
+            return self.encoder.encode(self.cfg, self.codebooks, x_q, backend=self.cfg.backend)
 
     def _fit_sums(self, images, labels) -> tuple[torch.Tensor, int]:
         if not isinstance(labels, torch.Tensor):

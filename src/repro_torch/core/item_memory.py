@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.core import unary
 from repro_torch.core.hdc_model import resolve_device
+from repro_torch.obs.profiler import span
 
 
 def _as_tensor(a) -> torch.Tensor:
@@ -118,17 +119,22 @@ class ItemMemory:
             packed = isinstance(queries, torch.Tensor) and queries.dtype == torch.uint32
             if packed:
                 queries = queries.view(torch.int32)
-        q = _as_tensor(queries).to(self.device)
-        if q.dim() == 1:
-            q = q[None]
-        if packed and q.shape[-1] == self.n_words:
-            qw = q
-        elif not packed and q.shape[-1] == self.d:
-            qw = unary.pack_hypervector(q)
-        else:
-            raise ValueError(
-                f"queries must be (B, {self.d}) hypervectors or (B, {self.n_words}) packed "
-                f"uint32 rows, got {tuple(q.shape)}"
-            )
-        idx, dist = ops.hamming_topk(qw.contiguous(), self._device_rows(), self.d, k)
-        return idx.cpu().numpy(), dist.cpu().numpy()
+        with span("store.copy_in"):
+            q = _as_tensor(queries).to(self.device)
+            if q.dim() == 1:
+                q = q[None]
+            if packed and q.shape[-1] == self.n_words:
+                qw = q
+            elif not packed and q.shape[-1] == self.d:
+                qw = unary.pack_hypervector(q)
+            else:
+                raise ValueError(
+                    f"queries must be (B, {self.d}) hypervectors or (B, {self.n_words}) packed "
+                    f"uint32 rows, got {tuple(q.shape)}"
+                )
+        with span("store.rows"):
+            rows = self._device_rows()
+        with span("store.scan"):
+            idx, dist = ops.hamming_topk(qw.contiguous(), rows, self.d, k)
+        with span("store.wait"):
+            return idx.cpu().numpy(), dist.cpu().numpy()

@@ -20,13 +20,22 @@ Core primitives, all stdlib + thread-safe, shared by
     counters/gauges/histograms), byte-identical to the JAX package's for
     the same metrics; :func:`parse_exposition` is its strict inverse.
 
-Plus the device-step profiling hooks: :class:`timed_block` (a timing
-context that waits on an event of the current stream) and
-:func:`profile_capture` (an opt-in ``torch.profiler`` trace window).
+Plus the device-step profiling hooks: :func:`span` (a named stretch of
+host code, recorded between :func:`record_spans` and :func:`take_spans`),
+:class:`timed_block` (a timing span that waits on an event of the
+current stream) and :func:`profile_capture` (an opt-in ``torch.profiler``
+trace window, the spans written into it).
 """
 
 from repro_torch.obs.histogram import LatencyHistogram  # noqa: F401
-from repro_torch.obs.profiler import profile_capture, timed_block  # noqa: F401
+from repro_torch.obs.profiler import (  # noqa: F401
+    Span,
+    profile_capture,
+    record_spans,
+    span,
+    take_spans,
+    timed_block,
+)
 from repro_torch.obs.prometheus import (  # noqa: F401
     parse_exposition,
     render_prometheus,

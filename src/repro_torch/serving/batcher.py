@@ -371,7 +371,7 @@ class MicroBatcher:
                     if fut.trace is not None:
                         fut.trace.t_device_start = t_device_start
                         fut.trace.step = engine.step
-                with timed_block("device") as tb:
+                with timed_block("batcher.device") as tb:
                     if op[0] == "search":
                         indices, dists = tb.sync(engine.search(batch, op[1]))
                         results = [(indices[i], dists[i]) for i in range(len(taken))]

@@ -51,6 +51,7 @@ import torch
 from repro_torch.core import encoding
 from repro_torch.core.hdc_model import HDCModel
 from repro_torch.kernels import ops
+from repro_torch.obs.profiler import span
 from repro_torch.serving.execution import DeviceExecution, ShardedExecution, resolve_impl
 
 __all__ = ["OP_PREDICT", "ServingEngine", "resolve_impl"]
@@ -173,8 +174,11 @@ class ServingEngine:
         """Hold the engine for one step and yield :attr:`staging`: write the
         batch into it, then pass it to `predict` or `search`, which read
         it in place."""
-        with self._lock:
+        self._acquire()
+        try:
             yield self.staging
+        finally:
+            self._lock.release()
 
     def warmup(self) -> "ServingEngine":
         """Prepare the static-shape predict before taking traffic: capture
@@ -188,17 +192,28 @@ class ServingEngine:
                 self._eager(OP_PREDICT, self._staging)
         return self
 
+    def _acquire(self) -> None:
+        """Take the engine's lock; where another thread holds it, the wait
+        is the span ``engine.lock``."""
+        if not self._lock.acquire(blocking=False):
+            with span("engine.lock"):
+                self._lock.acquire()
+
     def _run(self, op: tuple[str, int], images):
-        with self._lock:
+        self._acquire()
+        try:
             if self._graph_device is None or len(images) != self.batch_size:
                 return self._eager(op, images)
             if images is not self.staging:
-                x = torch.as_tensor(images)
-                if x.shape != self._staging.shape:
-                    raise ValueError(f"expected ({self.batch_size}, n_features) images, "
-                                     f"got {tuple(x.shape)}")
-                self._staging.copy_(x)
+                with span("engine.stage"):
+                    x = torch.as_tensor(images)
+                    if x.shape != self._staging.shape:
+                        raise ValueError(f"expected ({self.batch_size}, n_features) images, "
+                                         f"got {tuple(x.shape)}")
+                    self._staging.copy_(x)
             return self._replay(self._graph(op))
+        finally:
+            self._lock.release()
 
     def _step(self, op: tuple[str, int], images) -> tuple[torch.Tensor, ...]:
         if op[0] == "search":
@@ -215,7 +230,9 @@ class ServingEngine:
 
     def _eager(self, op: tuple[str, int], images):
         with self._on_stream():
-            out = tuple(t.cpu().numpy() for t in self._step(op, images))
+            step = self._step(op, images)
+            with span("engine.copy_out"):
+                out = tuple(t.cpu().numpy() for t in step)
         return out if op[0] == "search" else out[0]
 
     def _graph(self, op: tuple[str, int]) -> _Graph:
@@ -254,13 +271,15 @@ class ServingEngine:
         return _Graph(graph, outputs, launches, operands)
 
     def _replay(self, g: _Graph):
-        with self._on_stream():
+        with span("engine.replay"), self._on_stream():
             g.graph.replay()
             self._done.record(self.stream)
-        self._done.synchronize()
+        with span("engine.wait"):
+            self._done.synchronize()
         self.n_replays += 1
-        ops.add_launches(g.launches)
-        out = tuple(t.numpy().copy() for t in g.outputs)
+        with span("engine.copy_out"):
+            ops.add_launches(g.launches)
+            out = tuple(t.numpy().copy() for t in g.outputs)
         return out if len(out) == 2 else out[0]
 
     def describe(self) -> dict:

@@ -66,7 +66,8 @@ Routes (DESIGN.md §8, §10, §13):
     ``id`` resolves a tail-latency exemplar to its full trace, and an
     unknown id is a 404 with a JSON error body, not an empty list).
   * ``POST /v1/debug/profile?ms=N`` — opt-in ``torch.profiler`` capture
-    window (`repro_torch.obs.profiler.profile_capture`); 403 unless the
+    window with the program's host spans written into its trace
+    (`repro_torch.obs.profiler.profile_capture`); 403 unless the
     server was started with ``enable_profiling=True``, 409 while another
     capture runs.
 
