@@ -11,9 +11,10 @@ that drift on the card falls on both.  A worker calls the public wrappers
 (``repro_torch.kernels.ops``) at the main paths' shapes on inputs made from a
 fixed seed, holds each result against its plain version, and times it with
 ``chip_smoke.device_ms`` (``torch.profiler``, 20 calls, a profile that missed
-launches taken again), by kernel name.  ``hamming_topk_select`` runs kernel 5
-with its selection scan forced at a shape ``ops.topk_path`` sends to the warp
-path, to price the warp path against it; ``hamming_packed_<path>`` runs kernel 6
+launches taken again), by kernel name.  ``hamming_topk_tensor`` runs kernel 5
+with its large-store path (the one ``ops.topk_path`` picks past
+``ops.TOPK_WARP_MAX_ROWS`` rows in each tree) forced at a shape it sends to the
+warp path, to price the warp path against it; ``hamming_packed_<path>`` runs kernel 6
 with that path forced (``ops.packed_path``; a tree without it runs its one
 kernel).  ``--only a,b`` keeps the cases whose names start with one of those
 prefixes.  Printed:
@@ -44,8 +45,13 @@ CASES = [
     ("encode_bundle_dynamic", dict(B=1024, H=784, D=8192)),
     ("fit_bundle_int32", dict(B=512, H=784, D=8192, C=10)),
     ("hamming_topk", dict(B=64, C=10, W=256, k=1)),
-    ("hamming_topk_select", dict(B=64, C=10, W=256, k=1)),
+    ("hamming_topk_tensor", dict(B=64, C=10, W=256, k=1)),
     *[("hamming_topk", dict(B=64, C=65548, W=256, k=k)) for k in (8, 33, 300, 1000)],
+    ("hamming_topk", dict(B=64, C=1048576, W=256, k=8)),
+    # small stores (ItemMemory's in the examples and launchers): the large-store path's
+    # fixed cost a call
+    *[("hamming_topk", dict(B=b, C=c, W=256, k=k)) for b in (1, 64) for c in (300, 5000)
+      for k in (1, 8)],
     *[("hamming_packed", dict(B=64, C=c, W=w)) for c in (10, 65548) for w in (256, 64)],
     *[("hamming_packed_tensor", dict(B=64, C=10, W=w)) for w in (256, 64)],
     *[("bundle_binarize", dict(B=b, C=10, D=d)) for b, d in ((2048, 8192), (512, 8192), (256, 2048))],
@@ -65,6 +71,7 @@ def worker(src: Path, only: list[str]) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     topk_path = ops.topk_path
+    store_path = topk_path(ops.TOPK_WARP_MAX_ROWS + 1)
     packed_path = getattr(ops, "packed_path", None)
 
     def table(h, d, levels, dtype):
@@ -110,7 +117,7 @@ def worker(src: Path, only: list[str]) -> int:
                 fn = lambda: ops.hamming_topk(q, r, d, k)  # noqa: E731
                 plain = lambda: ref.hamming_topk(q, r, d, k)  # noqa: E731
         # the wrappers read ops.topk_path and ops.packed_path at each call
-        ops.topk_path = (lambda *_: "select") if name == "hamming_topk_select" else topk_path
+        ops.topk_path = (lambda *_: store_path) if name == "hamming_topk_tensor" else topk_path
         if packed_path is not None:
             forced = name[len("hamming_packed_"):] if name.startswith("hamming_packed_") else None
             ops.packed_path = (lambda *_: forced) if forced else packed_path

@@ -20,8 +20,8 @@ Phases, each printed as one JSON object per line:
    and for ``bundle_binarize`` one int32 ``index_add_``, is timed beside it as
    the library yardstick (the port never calls them); each bound is the largest of
    the bytes, the int32 operations and the popcounts over their rates (for the two
-   packed-score kernels, 2*B*C*d int8 operations at the tensor cores' rate, with the
-   popcount count beside it, ``bound_ms_popc``), beside the earlier counts where they
+   packed-score kernels, 2*B*C*d binary operations at the binary tensor cores' rate,
+   with the popcount count beside it, ``bound_ms_popc``), beside the earlier counts where they
    differ (``bound_ms_pr16``: popcounts as int32 operations; ``bound_ms_direct_form``); ``hamming_packed`` on both
    of its paths (``ops.packed_path``, and the tensor path forced at the warp path's
    shapes); the top-k store search's device time split into its scan and merge
@@ -429,6 +429,10 @@ HBM_BYTES_PER_S = _RL.HBM_BW
 INT32_OPS_PER_S = _RL.INT32_OPS_PER_S
 POPC_PER_S = _RL.POPC_PER_S
 INT8_TC_OPS_PER_S = _RL.INT8_TC_OPS_PER_S
+# the binary products of kernels 5 and 6 (mma.sync m16n8k256 .b1, BMMA), as measured on
+# an H100 SXM (PERF.md §6): 0.587 MMAs of 2 * 16 * 8 * 256 operations a clock an SM, on
+# 132 SMs at 1,980 MHz, 10.05 P binary operations/s
+BMMA_OPS_PER_S = 0.587 * 2 * 16 * 8 * 256 * 132 * 1.98e9
 
 KERNELS = {
     "encode_bundle": dict(
@@ -893,41 +897,50 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
             raise AssertionError(f"fit_bundle_dynamic took the {path} path, not {want_path}")
 
     # -- hamming_topk: predict (k=1, the warp path), a 64 MiB store (k=8, the
-    #    select path), crafted ties at C=33 (k=5, the warp path) and at k=C=1000
-    #    (the select path, every row of a block selected) ------------------------
+    #    tensor path), crafted ties at C=33 (k=5, the warp path) and at k=C=1000
+    #    (the tensor path, every row of a tile selected), the search cell's 1 GiB
+    #    store (k=8; random words, a run of ties across a tile edge) ---------------
     for b, c, d, k in [(64, 10, 8192, 1), (64, 65536, 8192, 8), (64, 33, 8192, 5),
-                       (16, 1000, 1000, 1000)]:
+                       (16, 1000, 1000, 1000), (64, 2**20, 8192, 8)]:
         w = unary.n_words(d)
-        bits_q = torch.rand((b, d), generator=gen, device=dev) < 0.5
-        bits_r = torch.rand((c, d), generator=gen, device=dev) < 0.5
-        if d == 1000 or c == 33:
-            bits_r[c // 2] = bits_r[1]  # duplicate rows: equal distances
-            bits_r[c - 1] = bits_r[0]
-            bits_r[3] = bits_q[0]  # an exact match
-            bits_r[5:9] = bits_r[4]  # a run of ties
-        q, rows = unary.pack_bits(bits_q), unary.pack_bits(bits_r)
+        if c == 2**20:  # packed words drawn directly: the bits would take 32 GiB
+            q = torch.randint(-2**31, 2**31 - 1, (b, w), generator=gen, device=dev,
+                              dtype=torch.int32)
+            rows = torch.randint(-2**31, 2**31 - 1, (c, w), generator=gen, device=dev,
+                                 dtype=torch.int32)
+            rows[254:258] = q[0]
+            rows[254:258, 0] ^= 1  # four rows at distance 1 from query 0, over a tile edge
+        else:
+            bits_q = torch.rand((b, d), generator=gen, device=dev) < 0.5
+            bits_r = torch.rand((c, d), generator=gen, device=dev) < 0.5
+            if d == 1000 or c == 33:
+                bits_r[c // 2] = bits_r[1]  # duplicate rows: equal distances
+                bits_r[c - 1] = bits_r[0]
+                bits_r[3] = bits_q[0]  # an exact match
+                bits_r[5:9] = bits_r[4]  # a run of ties
+            q, rows = unary.pack_bits(bits_q), unary.pack_bits(bits_r)
         k_fn = lambda: ops.hamming_topk(q, rows, d, k)  # noqa: E731
         p_fn = lambda: ref.hamming_topk(q, rows, d, k)  # noqa: E731
         got = k_fn()
         torch.cuda.synchronize()
         want = ref.hamming_topk_oracle(q, rows, d, k) if c <= 1000 else p_fn()
-        path = "warp" if c <= 64 else "select"
+        path = "warp" if c <= 64 else "tensor"
         if ops.topk_path(c) != path:
             raise AssertionError(f"hamming_topk took the {ops.topk_path(c)} path, not {path}")
         n_bytes = b * w * 4 + c * w * 4 + 2 * b * k * 4
-        # the least work: the binary products on the int8 tensor cores, 2*B*C*d operations
+        # the least work: the binary products on the tensor cores, 2*B*C*d operations
         # (d = 32 W); beside it the CUDA cores' count, an XOR, an add and a popcount a pair
         shape = dict(B=b, C=c, D=d, k=k)
         check("hamming_topk", list(got), list(want), shape,
-              (k_fn, p_fn, n_bytes, 2 * b * c * 32 * w, INT8_TC_OPS_PER_S) if d == 8192 else None,
+              (k_fn, p_fn, n_bytes, 2 * b * c * 32 * w, BMMA_OPS_PER_S) if d == 8192 else None,
               popc_form=(2 * b * c * w, b * c * w))
-        if c == 65536:  # where the store search's time goes: its scan and merge launches
+        if c >= 65536:  # where the store search's time goes: its scan and merge launches
             t = results["hamming_topk"]["timed"][json.dumps(shape, sort_keys=True)]
             rows = t["device_rows"]
             merge = [r for r in rows if "merge_kernel" in r["name"]]
             whole = isinstance(t["device_ms"], float)
             emit("kernel_split", kernel="hamming_topk", shape=shape, path=path,
-                 scan_ms=sum(r["ms"] for r in rows if "scan_kernel" in r["name"])
+                 scan_ms=sum(r["ms"] for r in rows if "topk_kernel" in r["name"])
                  if whole else "not measured",
                  merge_ms=sum(r["ms"] for r in merge) if whole else "not measured",
                  merge_launches=sum(r["calls"] for r in merge), rows=rows)
@@ -964,7 +977,7 @@ def kernel_phase(torch, ops, ref, sobol, unary, encoding, prng) -> dict[str, dic
                 timed = forced is None and b == 64 and (c == 10 or (c == 65548 and d != 2040))
                 n_bytes = (b * w + c * w + b * c) * 4
                 check("hamming_packed", [got], [want], shape,
-                      (k_fn, p_fn, n_bytes, 2 * b * c * 32 * w, INT8_TC_OPS_PER_S)
+                      (k_fn, p_fn, n_bytes, 2 * b * c * 32 * w, BMMA_OPS_PER_S)
                       if timed else None, popc_form=(2 * b * c * w, b * c * w))
                 if timed and d != 2040:
                     library_packed_int_mm(torch, results, got, bits_q, bits_r, shape)
@@ -1798,7 +1811,7 @@ def shape_case(torch, ops, ref, sobol, name: str, key: str, gen):
             fn, plain = (lambda: ops.hamming_packed(q, rows, 32 * w)), \
                 (lambda: ref.hamming_packed(q, rows, 32 * w))
             n_bytes = (b * w + c * w + b * c) * 4
-        return fn, plain, n_bytes, 2 * b * c * 32 * w, (INT8_TC_OPS_PER_S,), 0, \
+        return fn, plain, n_bytes, 2 * b * c * 32 * w, (BMMA_OPS_PER_S,), 0, \
             {"bound_ms_popc": popc_bound_ms(n_bytes, 2 * b * c * w, b * c * w)}
     if name == "encode_unary_mxu":
         b, kk, d = k["B"], k["K"], k["D"]

@@ -38,8 +38,8 @@ SIGNATURES = {
     "uhd_encode_bundle_dynamic": (_P, _P, _I, _P, _I, _I, _I, _L, _P),
     "uhd_fit_bundle_dynamic": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _L, _P),
     "uhd_fit_bundle_dynamic_hist": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P),
-    "uhd_hamming_topk": (_P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    "uhd_hamming_topk_scratch": (_I, _I, _I),
+    "uhd_hamming_topk": (_P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    "uhd_hamming_topk_scratch": (_I, _I, _I, _I),
     "uhd_hamming_packed": (_P, _P, _I, _I, _I, _I, _I, _P, _P),
     "uhd_encode_unary_mxu": (_P, _P, _I, _I, _I, _I, _P, _P),
     "uhd_encode_unary_mxu_wide": (_I, _I),

@@ -59,10 +59,10 @@ HIST_MAX_CLASSES = 48
 HIST_MAX_SCRATCH_BYTES = 256 * 2**20
 _DIR_DTYPES = (torch.uint8, torch.uint16, torch.uint32)
 #: kernel 5's paths (``topk_path``): stores of at most this many rows take the warp
-#: path (one warp a query, no merge), larger ones the selection scan; the codes are
+#: path (one warp a query, no merge), larger ones the tensor-core path; the codes are
 #: the kernel's
 TOPK_WARP_MAX_ROWS = 64
-_TOPK_PATHS = {"warp": 0, "select": 1}
+_TOPK_PATHS = {"warp": 0, "tensor": 1}
 #: kernel 6's paths (``packed_path``): stores of at most this many rows take the warp
 #: path (one warp a query), larger ones the tensor-core path; the codes are the kernel's
 PACKED_WARP_MAX_ROWS = 64
@@ -352,10 +352,11 @@ def fit_bundle_dynamic(
 def topk_path(n_rows: int) -> str:
     """Which path of the top-k kernel runs, from the store's row count alone:
     ``"warp"`` for at most ``TOPK_WARP_MAX_ROWS`` rows (one warp a query
-    selects k by warp-wide minima: one launch), else ``"select"`` (each scan
-    block selects its k best by warp-wide minima, then merge passes).  Both
-    take any k in [1, C] and give the same result."""
-    return "warp" if n_rows <= TOPK_WARP_MAX_ROWS else "select"
+    selects k by warp-wide minima: one launch), else ``"tensor"`` (binary
+    AND-popcount products on the tensor cores, each block's k best selected
+    in its epilogue, then merge passes).  Both take any k in [1, C] and give
+    the same result."""
+    return "warp" if n_rows <= TOPK_WARP_MAX_ROWS else "tensor"
 
 
 def hamming_topk(
@@ -381,11 +382,12 @@ def hamming_topk(
         return idx, dist
     lib = _build.library()
     path = topk_path(c)
-    n = lib.uhd_hamming_topk_scratch(b, c, k)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count  # the split of the store
+    n = lib.uhd_hamming_topk_scratch(b, c, k, sms)
     scratch = [torch.empty(n, dtype=torch.int64, device=dev) if n else None for _ in range(2)]
     with torch.cuda.device(dev):
         err = lib.uhd_hamming_topk(
-            _ptr(q), _ptr(rows), b, c, w, k, _TOPK_PATHS[path], _ptr(scratch[0]),
+            _ptr(q), _ptr(rows), b, c, w, k, _TOPK_PATHS[path], sms, _ptr(scratch[0]),
             _ptr(scratch[1]), _ptr(idx), _ptr(dist), _stream(dev),
         )
     _check(err, "hamming_topk")

@@ -175,13 +175,13 @@ def test_hamming_topk_rejects_k_out_of_range():
 
 @pytest.mark.parametrize(
     "n_rows,k,want",
-    [(1, 1, "warp"), (10, 1, "warp"), (33, 33, "warp"), (64, 64, "warp"), (65, 1, "select"),
-     (65, 32, "select"), (65, 33, "select"), (65548, 8, "select"), (65548, 33, "select"),
-     (1000, 1000, "select")],
+    [(1, 1, "warp"), (10, 1, "warp"), (33, 33, "warp"), (64, 64, "warp"), (65, 1, "tensor"),
+     (65, 32, "tensor"), (65, 33, "tensor"), (65548, 8, "tensor"), (65548, 33, "tensor"),
+     (1000, 1000, "tensor")],
 )
 def test_topk_path_chooses_from_shape(n_rows, k, want):
     # a store of at most 64 rows fits two keys a lane of one warp, a larger one takes the
-    # selection scan; both paths take any k in [1, C], so k does not enter the choice
+    # tensor-core scan; both paths take any k in [1, C], so k does not enter the choice
     assert 1 <= k <= n_rows
     assert tops.topk_path(n_rows) == want
 
@@ -246,10 +246,10 @@ def test_cuda_fit_bundle_dynamic_equals_plain(cuda, b, h, d, c, skip):
     assert torch.equal(got, want)
 
 
-# the select path's edges: a partial query tile (B < 16, B % 16 != 0), rows shorter than
-# a staged chunk of 256 words (D = 1000) and rows over two chunks (D = 10000), one scan
-# block (C = 300) and merge passes (C = 5000)
-_SELECT_CASES = [(b, c, d, k) for b in (1, 17, 65) for d in (1000, 8192, 10000)
+# the tensor path's edges: a partial query tile (B < 64, B % 64 != 0), rows shorter than
+# a staged chunk of 256 words (D = 1000) and rows over two chunks (D = 10000), two tiles
+# (C = 300) and merge passes (C = 5000), k held as a running list (k <= 32)
+_TENSOR_CASES = [(b, c, d, k) for b in (1, 17, 65) for d in (1000, 8192, 10000)
                  for c in (300, 5000) for k in (1, 32)]
 
 
@@ -257,7 +257,7 @@ _SELECT_CASES = [(b, c, d, k) for b in (1, 17, 65) for d in (1000, 8192, 10000)
 @pytest.mark.parametrize(
     "n_q,n_rows,d,k",
     [(64, 10, 8192, 1), (64, 5000, 8192, 8), (6, 1000, 1000, 1000), (3, 777, 257, 64),
-     (9, 600, 64, 300), *_SELECT_CASES],
+     (9, 600, 64, 300), *_TENSOR_CASES],
 )
 def test_cuda_hamming_topk_equals_plain(cuda, n_q, n_rows, d, k):
     q, r = _packed_store(n_rows + k, n_q, n_rows, d)
@@ -287,7 +287,7 @@ def test_cuda_hamming_topk_warp_path_equals_plain(cuda, n_q, n_rows, k):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 8, 32, 33])
 def test_cuda_hamming_topk_store_equals_plain(cuda, k):
-    # the 64 MiB ItemMemory store on the select path, k up to and past a warp's 32 lanes
+    # the 64 MiB ItemMemory store on the tensor path, k up to and past a warp's 32 lanes
     rng = np.random.default_rng(k)
     c, w = 65548, 256
     q = rng.integers(0, 2**32, (64, w), dtype=np.uint32).view(np.int32)
@@ -301,6 +301,87 @@ def test_cuda_hamming_topk_store_equals_plain(cuda, k):
     want_i, want_d = tref.hamming_topk(qt, rt, 32 * w, k)
     assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
     assert got_i[0, 0] == 40_000 and got_d[0, 0] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_hamming_topk_search_1m_equals_plain(cuda):
+    # the search cell's shape: 64 queries, top 8 of 2^20 rows of 8,192 bits (1 GiB), the
+    # rows split over the card's SMs a block each, then merged
+    rng = np.random.default_rng(2**20)
+    b, c, w, k = 64, 2**20, 256, 8
+    q = rng.integers(0, 2**32, (b, w), dtype=np.uint32).view(np.int32)
+    rt = torch.randint(-2**31, 2**31 - 1, (c, w), dtype=torch.int32, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(1))
+    qt = torch.from_numpy(q).to(cuda)
+    near = qt[1].clone()
+    near[0] ^= 0b111  # three bits off query 1: a run of equal distances
+    rt[254:258] = near  # across the edge of tiles 0 and 1
+    rt[8190:8194] = near  # across the edge of 8,192-row blocks (32 tiles a block on 132 SMs)
+    rt[900_000] = near  # a ninth at the same distance: the lowest indices win
+    dup = qt[2].clone()
+    dup[3] ^= 0b11111  # five bits off query 2, as duplicate rows in three tiles
+    rt[5] = rt[c // 2 + 7] = rt[c - 1] = dup
+    rt[700_001] = qt[0]  # an exact match for query 0
+    tops.reset_launches()
+    got_i, got_d = tops.hamming_topk(qt, rt, 32 * w, k)
+    torch.cuda.synchronize()
+    assert list(tops.LAUNCH_SHAPES["hamming_topk"]) == [f"B={b} C={c} W={w} k={k} path=tensor"]
+    want_i, want_d = tref.hamming_topk(qt, rt, 32 * w, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    assert got_i[0, 0] == 700_001 and got_d[0, 0] == 0
+    assert got_i[1].tolist() == [254, 255, 256, 257, 8190, 8191, 8192, 8193]
+    assert got_d[1].tolist() == [3] * 8
+    assert got_i[2, :3].tolist() == [5, c // 2 + 7, c - 1] and got_d[2, :3].tolist() == [5] * 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_q", [1, 63, 65])
+@pytest.mark.parametrize("n_rows", [65, 255, 257])
+@pytest.mark.parametrize("k", [1, 8, 65])
+def test_cuda_hamming_topk_tensor_ragged_equals_oracle(cuda, n_q, n_rows, k):
+    # ragged B and C on the tensor path, k held as a list and k written a tile, and rows
+    # one word off their storage's 16-byte boundary (the word-by-word loads)
+    q, r = _packed_store(n_q + n_rows + k, n_q, n_rows + 1, 1000)
+    qt = torch.from_numpy(q).to(cuda)
+    flat = torch.from_numpy(r).to(cuda).reshape(-1)
+    w = r.shape[1]
+    for rt in (flat[:n_rows * w].view(n_rows, w), flat[1:1 + n_rows * w].view(n_rows, w)):
+        assert tops.topk_path(n_rows) == "tensor"
+        got_i, got_d = tops.hamming_topk(qt, rt, 1000, min(k, n_rows))
+        torch.cuda.synchronize()
+        want_i, want_d = tref.hamming_topk_oracle(qt, rt, 1000, min(k, n_rows))
+        assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "n_q,n_rows,d,k",
+    [(65, 65548, 10000, 8), (65, 65548, 10000, 33), (65, 65548, 10240, 8),
+     (65, 65548, 10240, 33), (64, 10000, 8192, 8), (64, 10000, 10000, 32)],
+)
+def test_cuda_hamming_topk_tensor_tilings_equal_plain(cuda, n_q, n_rows, d, k):
+    # 65,548 rows are 257 tiles, two or more a block on a card of 129 to 256 SMs: rows over
+    # two staged chunks (D = 10,000 word by word, D = 10,240 in 16-byte loads) restage the
+    # queries at each later tile, for the list kept over tiles (k <= 32) and for a run a
+    # tile (k = 33); 10,000 rows on 40 blocks take 32 queries a block on 132 SMs
+    gen = torch.Generator(device=cuda).manual_seed(n_rows + d + k)
+    w = -(-d // 32)
+    bits_q = torch.rand((n_q, d), generator=gen, device=cuda) < 0.5
+    bits_r = torch.rand((n_rows, d), generator=gen, device=cuda) < 0.5
+    bits_r[n_rows - 2] = bits_r[n_rows - 1] = bits_r[3]  # duplicates in the first and last tiles
+    near = bits_q[0].clone()
+    near[7] = ~near[7]
+    bits_r[254:258] = bits_r[510:514] = near  # eight ties at distance 1 over two tile edges
+    qt, rt = tunary.pack_bits(bits_q), tunary.pack_bits(bits_r)
+    tops.reset_launches()
+    got_i, got_d = tops.hamming_topk(qt, rt, d, k)
+    torch.cuda.synchronize()
+    assert list(tops.LAUNCH_SHAPES["hamming_topk"]) == [
+        f"B={n_q} C={n_rows} W={w} k={k} path=tensor"]
+    want_i, want_d = tref.hamming_topk(qt, rt, d, k)
+    assert torch.equal(got_i, want_i) and torch.equal(got_d, want_d)
+    assert got_i[0, :8].tolist() == [254, 255, 256, 257, 510, 511, 512, 513]
+    assert got_d[0, :8].tolist() == [1] * 8
 
 
 @pytest.mark.cuda
