@@ -43,6 +43,7 @@ from repro_torch.core.registry import (
     register_fit_bundle,
     register_topk,
 )
+from repro_torch.obs.profiler import span
 
 if TYPE_CHECKING:
     from repro_torch.core.model import HDCConfig
@@ -75,9 +76,12 @@ class UHDEncoder(EncoderBase):
         return np.dtype(np.int8 if cfg.levels <= 127 else np.int32)
 
     def build_codebooks(self, cfg: "HDCConfig") -> dict[str, torch.Tensor]:
-        table = sobol.sobol_table_for_features(
-            cfg.n_features, cfg.d, cfg.levels, seed=cfg.seed, skip=cfg.sobol_skip
-        )
+        """The table, in the span ``sobol.directions`` (its direction
+        numbers and the Gray-code fill)."""
+        with span("sobol.directions"):
+            table = sobol.sobol_table_for_features(
+                cfg.n_features, cfg.d, cfg.levels, seed=cfg.seed, skip=cfg.sobol_skip
+            )
         return {"sobol": torch.from_numpy(table.astype(self._sobol_dtype(cfg)))}
 
     def codebook_specs(self, cfg: "HDCConfig") -> dict[str, tuple[tuple[int, ...], np.dtype]]:
@@ -141,7 +145,9 @@ class UHDDynamicEncoder(UHDEncoder):
     dynamic_generator = True
 
     def build_codebooks(self, cfg: "HDCConfig") -> dict[str, torch.Tensor]:
-        dirs = sobol.quantized_direction_matrix(cfg.n_features, cfg.levels, seed=cfg.seed)
+        """The quantized direction numbers, in the span ``sobol.directions``."""
+        with span("sobol.directions"):
+            dirs = sobol.quantized_direction_matrix(cfg.n_features, cfg.levels, seed=cfg.seed)
         return {"direction": torch.from_numpy(np.ascontiguousarray(dirs))}
 
     def codebook_specs(self, cfg: "HDCConfig") -> dict[str, tuple[tuple[int, ...], np.dtype]]:

@@ -203,15 +203,18 @@ class HDCModel(nn.Module):
             return self.encoder.encode(self.cfg, self.codebooks, x_q, backend=self.cfg.backend)
 
     def _fit_sums(self, images, labels) -> tuple[torch.Tensor, int]:
-        if not isinstance(labels, torch.Tensor):
-            # checked on the host before the copy: no round trip through the card
-            labels = np.asarray(labels)
-        encoding.validate_labels(labels, self.cfg.n_classes)
-        labels = self._tensor(labels).to(torch.int32)
-        sums = self.encoder.fit_bundle(
-            self.cfg, self.codebooks, self.quantize(images), labels, backend=self.cfg.backend
-        )
-        return sums, int(labels.shape[0])
+        """One block's class sums and size: the span ``model.fit`` (the
+        copies in, the quantize and the training kernel's launch)."""
+        with span("model.fit"):
+            if not isinstance(labels, torch.Tensor):
+                # checked on the host before the copy: no round trip through the card
+                labels = np.asarray(labels)
+            encoding.validate_labels(labels, self.cfg.n_classes)
+            labels = self._tensor(labels).to(torch.int32)
+            sums = self.encoder.fit_bundle(
+                self.cfg, self.codebooks, self.quantize(images), labels, backend=self.cfg.backend
+            )
+            return sums, int(labels.shape[0])
 
     def fit(self, images, labels) -> "HDCModel":
         """Single-pass training on this data alone (a new model)."""

@@ -11,6 +11,12 @@ a family of *structured synthetic* datasets: per-class smooth prototypes
 They reproduce the qualitative phenomena the paper measures (accuracy
 grows with D; deterministic Sobol encoding beats the average
 pseudo-random draw) with fully deterministic generation.
+
+The port adds one set the JAX package lacks: ``cifar100`` (CIFAR-100's
+binary files, ``cifar-100-binary/{train,test}.bin``), whose fallback is a
+three-channel synthetic analogue of its shape (:func:`make_synthetic_cifar100`),
+kept out of ``_SYNTH_SPECS`` so that :data:`ALL_SYNTHETIC` and every set
+in it stay the JAX package's.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ class ImageDataset:
     train_labels: np.ndarray  # (N,) int32
     test_images: np.ndarray
     test_labels: np.ndarray
-    image_shape: tuple[int, int]
+    image_shape: tuple[int, ...]  # (side, side), or (channels, side, side) channel-major
     n_classes: int
     synthetic: bool
 
@@ -80,10 +86,33 @@ def _jitter(rng: np.random.Generator, img: np.ndarray, max_px: int) -> np.ndarra
     return np.roll(np.roll(img, dx, axis=0), dy, axis=1)
 
 
+#: the three-channel analogue of CIFAR-100 (32 x 32 x 3, 100 fine classes):
+#: synth_cifar10's strokes, over 100 prototypes; not in _SYNTH_SPECS, so
+#: ALL_SYNTHETIC is the JAX package's
+_SYNTH_CIFAR100 = ("synth_cifar100", (32, 100, 8, 56.0, 3, 2.2))
+#: each class's colour, a weight a channel drawn from U(*_TINT)
+_TINT = (0.25, 1.0)
+
+
 def make_synthetic(
     name: str, n_train: int = 4096, n_test: int = 1024, seed: int = 0
 ) -> ImageDataset:
-    side, n_classes, n_str, noise, jit, aj = _SYNTH_SPECS[name]
+    return _synthetic(name, _SYNTH_SPECS[name], n_train, n_test, seed)
+
+
+def make_synthetic_cifar100(n_train: int = 4096, n_test: int = 1024,
+                            seed: int = 0) -> ImageDataset:
+    """CIFAR-100's shape when its files are absent: each class a stroke
+    prototype and a colour (a weight a channel in [0.25, 1)), each image
+    its class's grey strokes times that colour, with noise drawn for each
+    channel; rows channel-major (1,024 red, 1,024 green, 1,024 blue), as
+    CIFAR's binary files store them."""
+    return _synthetic(*_SYNTH_CIFAR100, n_train, n_test, seed, channels=3)
+
+
+def _synthetic(name: str, spec: tuple, n_train: int, n_test: int, seed: int,
+               channels: int = 1) -> ImageDataset:
+    side, n_classes, n_str, noise, jit, aj = spec
     # zlib.crc32, not hash(): str hashes are randomized per process, and
     # the dataset must be reproducible across runs (a checkpointed model
     # evaluated in a new process has to see the same test split).
@@ -94,22 +123,26 @@ def make_synthetic(
         rng.uniform(3, side - 3, size=(n_str + 1, 2)).astype(np.float32)
         for _ in range(n_classes)
     ]
+    tint = rng.uniform(*_TINT, size=(n_classes, channels, 1, 1)) if channels > 1 else None
 
     def sample(n: int) -> tuple[np.ndarray, np.ndarray]:
         labels = rng.integers(0, n_classes, size=n).astype(np.int32)
-        imgs = np.empty((n, side * side), dtype=np.float32)
+        imgs = np.empty((n, channels * side * side), dtype=np.float32)
         for i, c in enumerate(labels):
             anchors = protos[c] + rng.standard_normal(protos[c].shape) * aj
             img = _draw_strokes(side, anchors)
             img = img * rng.uniform(0.75, 1.0)  # stroke intensity variation
             img = _jitter(rng, img, jit)
+            if tint is not None:
+                img = img[None] * tint[c]  # (channels, side, side)
             img = img + np.abs(rng.standard_normal(img.shape)) * noise
             imgs[i] = np.clip(img, 0, 255).reshape(-1)
         return imgs, labels
 
     tr_x, tr_y = sample(n_train)
     te_x, te_y = sample(n_test)
-    return ImageDataset(name, tr_x, tr_y, te_x, te_y, (side, side), n_classes, True)
+    shape = (side, side) if channels == 1 else (channels, side, side)
+    return ImageDataset(name, tr_x, tr_y, te_x, te_y, shape, n_classes, True)
 
 
 # ---------------------------------------------------------------------------
@@ -150,17 +183,41 @@ def _try_load_mnist(root: Path) -> ImageDataset | None:
     return ImageDataset("mnist", tr_x, tr_y, te_x, te_y, (28, 28), 10, False)
 
 
+def _try_load_cifar100(root: Path) -> ImageDataset | None:
+    """CIFAR-100's binary version: rows of 3,074 bytes, the coarse label,
+    the fine label (the class), then 3,072 pixels channel-major."""
+    paths = [root / "cifar-100-binary" / f"{split}.bin" for split in ("train", "test")]
+    if not all(p.exists() for p in paths):
+        return None
+    parts = []
+    for p in paths:
+        rows = np.fromfile(p, dtype=np.uint8)
+        if rows.size % 3074:
+            raise ValueError(f"{p}: {rows.size} bytes is not a whole number of 3,074-byte rows")
+        rows = rows.reshape(-1, 3074)
+        parts += [rows[:, 2:].astype(np.float32), rows[:, 1].astype(np.int32)]
+    return ImageDataset("cifar100", *parts, (3, 32, 32), 100, False)
+
+
 def load_dataset(
     name: str, n_train: int = 4096, n_test: int = 1024, seed: int = 0
 ) -> ImageDataset:
     """Load `name`; real data if available under $REPRO_DATA_DIR, else the
-    synthetic analogue (``mnist`` falls back to ``synth_mnist`` etc.)."""
+    synthetic analogue (``mnist`` falls back to ``synth_mnist``,
+    ``cifar100`` to ``synth_cifar100`` etc.)."""
     root = Path(os.environ.get("REPRO_DATA_DIR", "/data"))
     if name == "mnist":
         ds = _try_load_mnist(root)
         if ds is not None:
             return ds
         name = "synth_mnist"
+    if name == "cifar100":
+        ds = _try_load_cifar100(root)
+        if ds is not None:
+            return ds
+        name = _SYNTH_CIFAR100[0]
+    if name == _SYNTH_CIFAR100[0]:
+        return make_synthetic_cifar100(n_train, n_test, seed)
     if name in _SYNTH_SPECS:
         return make_synthetic(name, n_train, n_test, seed)
     raise ValueError(f"unknown dataset {name!r}")

@@ -6,6 +6,8 @@
         --save-dir /tmp/hdc
     PYTHONPATH=src python -m repro_torch.launch.train_hdc --encoder baseline \
         --compare-baseline --baseline-iters 5
+    PYTHONPATH=src python -m repro_torch.launch.train_hdc --dataset cifar100 \
+        --encoder uhd_dynamic --n-train 50000 --n-test 10000
 
 The torch counterpart of ``repro.launch.train_hdc``, with its defaults:
 create -> fit_batches (streamed, one fused training step a batch), or
@@ -152,7 +154,9 @@ def _train(args, on_retrain) -> TrainResult:
 
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--dataset", default="synth_mnist")
+    ap.add_argument("--dataset", default="synth_mnist",
+                    help="mnist or cifar100 (their files under $REPRO_DATA_DIR, else a "
+                         "synthetic set of their shape), or a synth_* set")
     ap.add_argument("--d", type=int, default=8192)
     ap.add_argument("--levels", type=int, default=16)
     ap.add_argument("--n-train", type=int, default=4096)
